@@ -1,0 +1,252 @@
+"""Host-side orchestration around the fused forward (port of the JAX
+package's `pipeline/host.py`): bytes -> RGB decode, resize to the detector
+input, batch padding to power-of-two buckets, and shaping outputs into the
+reference's response structures (`format_image_result`, `infer_bytes`).
+
+`InferencePipeline` is the entry point the HTTP file route calls
+(`infer_bytes`, `infer_serving`). It runs on `device="cuda"` unless the
+caller asks for the CPU; nothing moves to the CPU by itself when CUDA is
+missing.
+"""
+
+from __future__ import annotations
+
+import io
+from typing import Any, Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
+    EFFICIENTDET_LITE4,
+    EfficientDet,
+    EfficientDetConfig,
+)
+from human_body_proportion_estimation_tpu_torch.models.hrnet import (
+    HRNET_W32,
+    HRNet,
+    HRNetConfig,
+)
+from human_body_proportion_estimation_tpu_torch.models.weights import (
+    default_certified_checkpoint,
+    flax_to_state_dict,
+    load_compact_checkpoint,
+)
+from human_body_proportion_estimation_tpu_torch.ops import (
+    proportions as prop_ops,
+)
+from human_body_proportion_estimation_tpu_torch.pipeline.backends import (
+    EfficientDetBackend,
+)
+from human_body_proportion_estimation_tpu_torch.pipeline.full import (
+    FusedPipeline,
+    PipelineOutputs,
+)
+from human_body_proportion_estimation_tpu_torch.utils.config import (
+    PipelineConfig,
+)
+
+
+def decode_image_bytes(data: bytes) -> np.ndarray:
+    """Raw encoded bytes -> RGB uint8 HWC (PIL)."""
+    from PIL import Image
+
+    img = Image.open(io.BytesIO(data))
+    if img.mode != "RGB":
+        img = img.convert("RGB")
+    return np.asarray(img)
+
+
+def resize_for_detector(img: np.ndarray, width: int,
+                        height: int) -> np.ndarray:
+    """Host resize to the det input size (cv2 bilinear). An image already
+    at that size is copied as is, which is what cv2.resize does for an
+    unchanged size."""
+    if img.shape[:2] == (height, width):
+        return np.ascontiguousarray(img, dtype=np.uint8)
+    import cv2
+
+    return cv2.resize(img, (width, height)).astype(np.uint8)
+
+
+def _pad_batch(n: int, max_batch: int) -> int:
+    """Round up to the next power-of-two bucket."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(max(b, 1), max(max_batch, n))
+
+
+def prepare_batch(cfg: PipelineConfig, images_rgb, person_heights,
+                  det_threshold, b: int):
+    """Host-side batch assembly to a FIXED batch size `b`.
+
+    Returns (batch u8 [b,H,W,3], thresholds f32 [b], heights f32 [b,P],
+    orig_hw f32 [b,2], n). `person_heights`: a scalar for all images, or
+    per-image scalars/lists (`FLAGS.p_height[min(i, len-1)]` semantics).
+    """
+    n = len(images_rgb)
+    if n > b:
+        raise ValueError(f"{n} images exceed fixed batch size {b}")
+    p = cfg.detector.max_persons
+    h, w = cfg.detector.input_height, cfg.detector.input_width
+
+    batch = np.zeros((b, h, w, 3), np.uint8)
+    orig_hw = np.ones((b, 2), np.float32)
+    heights = np.full((b, p), 175.0, np.float32)
+    thresholds = np.full(
+        (b,), det_threshold if np.isscalar(det_threshold) else 1.0,
+        np.float32,
+    )
+    for i, img in enumerate(images_rgb):
+        if not np.isscalar(det_threshold):
+            thresholds[i] = float(det_threshold[i])
+        batch[i] = resize_for_detector(img, w, h)
+        orig_hw[i] = img.shape[:2]
+        hi = person_heights
+        if np.isscalar(hi):
+            heights[i, :] = float(hi)
+        else:
+            per_img = hi[i] if isinstance(hi[i], (list, tuple)) else hi
+            for slot in range(p):
+                heights[i, slot] = float(per_img[min(slot, len(per_img) - 1)])
+    return batch, thresholds, heights, orig_hw, n
+
+
+def load_certified_states(path: Optional[str] = None):
+    """(det_state, pose_state) port `state_dict`s from a compact `.npz`
+    (default: the committed certified Lite4 + W32 checkpoint)."""
+    det, pose = load_compact_checkpoint(path or default_certified_checkpoint())
+    return flax_to_state_dict(det), flax_to_state_dict(pose)
+
+
+class InferencePipeline:
+    """Owns the models on one device; `infer_*` block until results are on
+    the host.
+
+    `det_state` / `pose_state`: port `state_dict`s (`load_certified_states`,
+    or `models.weights.flax_to_state_dict` of flax variables). When either
+    is None, both come from the committed certified checkpoint, which only
+    fits the default (full-width) configs.
+    """
+
+    def __init__(
+        self,
+        config: Optional[PipelineConfig] = None,
+        det_state: Optional[Mapping[str, torch.Tensor]] = None,
+        pose_state: Optional[Mapping[str, torch.Tensor]] = None,
+        device: str | torch.device = "cuda",
+        det_config: EfficientDetConfig = EFFICIENTDET_LITE4,
+        pose_config: HRNetConfig = HRNET_W32,
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        self.config = cfg = config or PipelineConfig()
+        self.device = torch.device(device)
+        torch.empty(0, device=self.device)  # an unusable device fails here
+        if self.device.type == "cuda":
+            # The crop is f32 matmuls and HRNet's head an f32 conv: keep
+            # TF32 (~3 decimal digits) off for both, as the JAX package
+            # computes them in full f32.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        if det_state is None or pose_state is None:
+            det_state, pose_state = load_certified_states()
+
+        detector = EfficientDet(
+            det_config, dtype=dtype,
+            person_class0=cfg.detector.person_class_id - 1,
+        )
+        pose = HRNet(pose_config, dtype=dtype)
+        detector.load_state_dict(det_state, strict=True)
+        pose.load_state_dict(pose_state, strict=True)
+        detector.to(self.device).eval()
+        pose.to(self.device).eval()
+        self.backend = EfficientDetBackend(detector, cfg, self.device)
+        self.pose = pose
+        self.fused = FusedPipeline(cfg, self.backend, pose)
+
+    def _prepare(self, images_rgb, person_heights, det_threshold):
+        b = _pad_batch(len(images_rgb), self.config.serve.max_batch)
+        batch, thresholds, heights, orig_hw, n = prepare_batch(
+            self.config, images_rgb, person_heights, det_threshold, b)
+        args = [torch.from_numpy(a).to(self.device)
+                for a in (batch, thresholds, heights, orig_hw)]
+        return args, n
+
+    def infer_serving(
+        self,
+        images_rgb: Sequence[np.ndarray],
+        person_heights: Sequence[float] | float = 175.0,
+        det_threshold: Sequence[float] | float = 0.70,
+    ) -> np.ndarray:
+        """Lean serving path: one packed [n, P, 23] array
+        (valid | lengths_cm x11 | seg_visible x11)."""
+        args, n = self._prepare(images_rgb, person_heights, det_threshold)
+        packed = self.fused.forward_serving(*args)
+        return packed.cpu().numpy()[:n]
+
+    def infer_images(
+        self,
+        images_rgb: Sequence[np.ndarray],
+        person_heights: Sequence[float] | float = 175.0,
+        det_threshold: Sequence[float] | float = 0.70,
+        with_heatmaps: bool = False,
+    ) -> PipelineOutputs:
+        """The fused forward on original-size RGB images; every output
+        leaf comes back as a numpy array cut to the n real images."""
+        args, n = self._prepare(images_rgb, person_heights, det_threshold)
+        out = self.fused.forward(*args, with_heatmaps=with_heatmaps)
+        return PipelineOutputs(*(
+            None if x is None else x.cpu().numpy()[:n] for x in out
+        ))
+
+    def infer_bytes(
+        self,
+        image_bytes: bytes,
+        person_height_cm: float = 175.0,
+        det_threshold: float = 0.70,
+    ) -> Dict[str, Any]:
+        """bytes -> HTTP-layer response dict (reference server.py:46-67)."""
+        try:
+            img = decode_image_bytes(image_bytes)
+        except Exception:
+            return {
+                "code": "failed",
+                "msg": "Failed to run inference on image. Please use an "
+                       "image with one fully visible human.",
+            }
+        out = self.infer_images(
+            [img], person_heights=float(person_height_cm),
+            det_threshold=det_threshold,
+        )
+        dicts = format_image_result(out, 0)[2:]
+        if not dicts:
+            return {
+                "code": "success",
+                "msg": "No humans detected",
+                "body_proportion_lengths_(cm)": {},
+            }
+        return {
+            "code": "success",
+            "msg": "human body proportion estimation complete",
+            "body_proportion_lengths_(cm)": dicts[0],
+        }
+
+
+def format_image_result(out: PipelineOutputs, i: int) -> List[Any]:
+    """Outputs for image i -> reference-parity nested list
+    ``[boxes, heatmaps, dist_dict_0, ...]`` (reference
+    `person_det_pose_edet4_trtserver.py:131-171`)."""
+    valid = np.asarray(out.person_valid[i])
+    nper = int(valid.sum())
+    boxes = np.asarray(out.boxes_orig[i])[:nper]
+    if out.heatmaps is not None:
+        heatmaps = np.asarray(out.heatmaps[i])[:nper]
+    else:
+        heatmaps = np.zeros((nper, 0, 0, 0), np.float32)
+    result: List[Any] = [boxes, heatmaps]
+    lengths = np.asarray(out.lengths_cm[i])
+    vis = np.asarray(out.seg_visible[i])
+    for slot in range(nper):
+        result.append(prop_ops.to_dist_dict(lengths[slot], vis[slot]))
+    return result

@@ -1,0 +1,84 @@
+"""Package-level guarantees of the port: it imports without JAX, flax or the
+JAX package; the committed certified checkpoint converts into the
+full-width port models with every tensor placed; entry points default to
+CUDA and do not fall back to the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["flax"] = None
+sys.modules["human_body_proportion_estimation_tpu"] = None
+import human_body_proportion_estimation_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) >= 16, names
+import chip_smoke
+assert not [m for m in sys.modules if m.startswith(("jax", "flax"))
+            and sys.modules[m] is not None]
+print("ok", len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    """In a fresh interpreter with jax, flax and the JAX package blocked,
+    every module of the port and chip_smoke.py import."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_certified_checkpoint_fills_full_width_port():
+    """Shape check: every tensor of certified_lite4_w32.npz finds its place
+    in the full-width port models, and no port tensor is left unfilled
+    (`strict=True`)."""
+    from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
+        EfficientDet,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.hrnet import HRNet
+    from human_body_proportion_estimation_tpu_torch.models.weights import (
+        default_certified_checkpoint,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        load_certified_states,
+    )
+
+    det_state, pose_state = load_certified_states()
+    n_npz = len(np.load(default_certified_checkpoint()).files)
+    n_bn = sum(k.endswith("num_batches_tracked")
+               for k in (*det_state, *pose_state))
+    assert len(det_state) + len(pose_state) - n_bn == n_npz
+    with torch.device("meta"):
+        det, pose = EfficientDet(), HRNet()
+    det.load_state_dict(det_state, strict=True, assign=True)
+    pose.load_state_dict(pose_state, strict=True, assign=True)
+    w = det.class_net.predict_pw.weight
+    assert w.shape == (810, 224, 1, 1) and w.dtype == torch.float32
+    assert pose.head.weight.shape == (17, 32, 1, 1)
+
+
+def test_entry_point_defaults_to_cuda_without_fallback():
+    import inspect
+
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        InferencePipeline,
+    )
+
+    default = inspect.signature(InferencePipeline).parameters["device"].default
+    assert default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            InferencePipeline(device="cuda")
