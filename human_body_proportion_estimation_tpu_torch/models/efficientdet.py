@@ -4,10 +4,11 @@ JAX package's `models/efficientdet.py`, score-kernel serving path).
 EfficientNet-Lite trunk -> BiFPN (unweighted-sum fusion, ReLU6) -> shared
 separable-conv class/box heads over P3..P7 (9 anchors per cell). The class
 head's final 1x1 predict conv is the CUDA head-score kernel
-(`ops/kernels.head_score`), which reduces the 90 class logits of each
-anchor to the best logit and the person logit without writing the logits
-out. `forward` returns `(best_logit [B, N], person_logit [B, N],
-box_flat [B, N, 4])`, level-major like the anchors, which is the flax
+(`ops/kernels.head_score_levels`, one launch for the five levels), which
+reduces the 90 class logits of each anchor to the best logit and the
+person logit without writing the logits out. `forward` returns
+`(best_logit [B, N], person_logit [B, N], box_flat [B, N, 4])`,
+level-major like the anchors, which is the flax
 `EfficientDet(score_kernel=True)(..., prescored=True)` contract.
 
 Traps handled here:
@@ -181,6 +182,7 @@ class EfficientDet(nn.Module):
         self.class_net = HeadNet(na * cfg.num_classes, cfg.head_repeats,
                                  fpn, 5)
         self.box_net = HeadNet(na * 4, cfg.head_repeats, fpn, 5)
+        self._class_predict_cache = (None, None, None)
 
     def forward(self, images: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -196,24 +198,35 @@ class EfficientDet(nn.Module):
         for i in range(cfg.fpn_repeats):
             feats = getattr(self, f"bifpn{i}")(feats)
 
-        # one bf16 copy of the shared predict conv for all five levels
-        w_cls = self.class_net.predict_pw.weight.reshape(na * nc, -1).to(
-            torch.bfloat16)
-        b_cls = self.class_net.predict_pw.bias.float()
-        best, person, boxes = [], [], []
+        w_cls, b_cls = self._class_predict_params()
+        zs, boxes = [], []
         for li, f in enumerate(feats):
             z = self.class_net.features(f, li)
-            z_nhwc = z.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
-            lb, lp = kernels.head_score(z_nhwc, w_cls, b_cls, na, nc,
-                                        self.person_class0)
-            best.append(lb.reshape(b, -1))
-            person.append(lp.reshape(b, -1))
+            zs.append(z.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous())
             # the box head's predict conv runs in f32 (flax dtype=float32)
             zb = self.box_net.features(f, li).float()
             o = self.box_net.predict_pw(zb)
             boxes.append(o.permute(0, 2, 3, 1).reshape(b, -1, 4))
-        return (torch.cat(best, 1), torch.cat(person, 1),
-                torch.cat(boxes, 1))
+        # one launch scores all five levels into the final [B, N] buffers
+        best, person = kernels.head_score_levels(
+            zs, w_cls, b_cls, na, nc, self.person_class0)
+        return best, person, torch.cat(boxes, 1)
+
+    def _class_predict_params(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The class head's shared predict conv as the head-score kernel
+        takes it: weight [A*C, F] bf16 and bias f32. Made once and kept
+        until the parameters change, so the kernel wrapper's cache of
+        packed weights sees the same tensors on every forward."""
+        conv = self.class_net.predict_pw
+        w, bias = conv.weight, conv.bias
+        key = (w.data_ptr(), w._version, bias.data_ptr(), bias._version)
+        if self._class_predict_cache[0] != key:
+            self._class_predict_cache = (
+                key,
+                w.detach().reshape(w.shape[0], -1).to(torch.bfloat16),
+                bias.detach().float(),
+            )
+        return self._class_predict_cache[1:]
 
 
 def person_slots(

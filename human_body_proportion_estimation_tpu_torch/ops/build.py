@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`).
 
 Each source is compiled by its own `nvcc` process, all started together,
-into an object for `sm_90a`; the objects are linked into one shared library
-with a plain C interface, loaded with `ctypes`. The build goes into
+into an object for `sm_90a` (headers shared between them are
+`csrc/*.cuh`); the objects are linked into one shared library with a plain
+C interface, loaded with `ctypes`. The build goes into
 `build/` beside this package (listed in `.gitignore`), under a name that
 hashes the sources and flags, so an edited source is never served from a
 stale library. Nothing here runs at import time: the first kernel launch
@@ -53,8 +54,13 @@ def find_nvcc() -> str:
 
 
 def _digest(srcs: List[str]) -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    headers = sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith(".cuh")
+    )
+    for s in srcs + headers:
         with open(s, "rb") as fh:
             h.update(os.path.basename(s).encode())
             h.update(fh.read())
@@ -106,9 +112,12 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hbpe_decode_heatmaps.argtypes = [p, p, p, i, i, i, p]
     lib.hbpe_nms_sweep.argtypes = [p, p, p, i, i, f, p]
-    lib.hbpe_head_score.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    # level arrays (z pointers, rows, cells, first columns) and their count,
+    # packed weights and bias, best, person, then the scalars and the stream
+    lib.hbpe_head_score_levels.argtypes = [
+        p, p, p, p, i, p, p, p, p, i, i, i, i, i, p]
     for fn in (lib.hbpe_decode_heatmaps, lib.hbpe_nms_sweep,
-               lib.hbpe_head_score):
+               lib.hbpe_head_score_levels):
         fn.restype = ctypes.c_int
     return lib
 

@@ -24,18 +24,20 @@ def decode_heatmaps(heatmaps: torch.Tensor) -> DecodedKeypoints:
 
     x = idx % W, y = idx // W, score = max; keypoints with score <= 0 are
     zeroed. The index is the smallest row-major position equal to the
-    max (`torch.argmax` does not promise which tie it returns). NaN never
-    wins: it is read as -inf, as the CUDA kernel's comparisons do (the JAX
-    version would report a NaN score instead; a finite map decodes the
-    same in both).
+    max (`torch.argmax` does not promise which tie it returns). A map that
+    holds a NaN reports a NaN score and the keypoint (0, 0), as the JAX
+    package does (`amax` propagates NaN and `NaN > 0` is false), so the
+    visibility gate `score >= t` fails for it; the other maps of the batch
+    are unaffected, and -inf / +inf are ordinary values.
     """
     w = heatmaps.shape[-1]
     flat = heatmaps.flatten(-2).float()
-    flat = torch.where(flat.isnan(), float("-inf"), flat)
     scores = flat.amax(-1)
     n = flat.shape[-1]
     lin = torch.arange(n, device=flat.device)
+    # nothing equals a NaN score: such a map falls to index 0
     idx = torch.where(flat == scores[..., None], lin, n).amin(-1)
+    idx = torch.where(idx == n, 0, idx)
     x = (idx % w).float()
     y = torch.div(idx, w, rounding_mode="floor").float()
     kpts = torch.stack([x, y], dim=-1)

@@ -5,7 +5,9 @@ Port of the JAX package's `ops/pallas_kernels.py`:
 
   JAX (Pallas, TPU)                         port (CUDA, sm_90a)
   decode_heatmaps_pallas  :56               decode_heatmaps  csrc/decode_heatmaps.cu
-  head_score_epilogue     :228              head_score       csrc/head_score.cu
+  head_score_epilogue     :228              head_score_levels csrc/head_score.cu
+                                            (all pyramid levels in one launch;
+                                            head_score is its one-level form)
   nms_sweep_pallas_batched :151 (+ :190)    nms_sweep        csrc/nms_sweep.cu
 
 Dispatch is by the device of the input and nothing else: a CPU tensor goes
@@ -17,7 +19,9 @@ through the kernels (`reset_launch_counts` / `launch_counts`).
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from collections import OrderedDict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -67,12 +71,19 @@ def _launch(name: str, fn, *args) -> None:
     LAUNCHES[name] += 1
 
 
-def _lib():
-    from human_body_proportion_estimation_tpu_torch.ops.build import (
-        load_library,
-    )
+_LIB = None
 
-    return load_library()
+
+def _lib():
+    """The kernel library, built and loaded at the first launch."""
+    global _LIB
+    if _LIB is None:
+        from human_body_proportion_estimation_tpu_torch.ops.build import (
+            load_library,
+        )
+
+        _LIB = load_library()
+    return _LIB
 
 
 # --------------------------------------------------------------------- #
@@ -93,8 +104,9 @@ def decode_heatmaps(
         return decode_heatmaps_plain(heatmaps)
     _check(heatmaps, "heatmaps", torch.float32, 4)
     n, k, h, w = heatmaps.shape
-    kp = torch.empty((n, k, 2), dtype=torch.float32, device=heatmaps.device)
-    scores = torch.empty((n, k), dtype=torch.float32, device=heatmaps.device)
+    # one allocation for both outputs: x, y of every map, then the scores
+    out = torch.empty((3, n, k), dtype=torch.float32, device=heatmaps.device)
+    kp, scores = out[:2].view(n, k, 2), out[2]
     _launch("decode_heatmaps", _lib().hbpe_decode_heatmaps,
             heatmaps.data_ptr(), kp.data_ptr(), scores.data_ptr(),
             n * k, h * w, w)
@@ -103,6 +115,10 @@ def decode_heatmaps(
 
 # --------------------------------------------------------------------- #
 # detection-head score epilogue
+
+MAX_LEVELS = 8          # level pointers in the kernel's parameter struct
+MAX_FEATURES = 256      # F: a multiple of 16, A operand held in registers
+CLASS_PAD = 96          # class rows of one anchor's weight slab (wgmma N)
 
 
 def head_score_plain(
@@ -124,6 +140,154 @@ def head_score_plain(
     return y.amax(-1), y[..., person_class0].contiguous()
 
 
+def head_score_levels_plain(
+    zs: Sequence[torch.Tensor],
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    anchors_per_cell: int,
+    num_classes: int,
+    person_class0: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`head_score_plain` level by level, flattened and concatenated
+    level-major: (best [B, N], person [B, N]), N = sum_l H_l * W_l * A."""
+    outs = [head_score_plain(z, weight, bias, anchors_per_cell, num_classes,
+                             person_class0) for z in zs]
+    b = zs[0].shape[0]
+    return (torch.cat([o[0].reshape(b, -1) for o in outs], 1),
+            torch.cat([o[1].reshape(b, -1) for o in outs], 1))
+
+
+def head_k_permutation(f: int) -> torch.Tensor:
+    """Feature index behind each position of the kernel's K axis, padded to
+    a multiple of 32 (indices >= f are padding).
+
+    The kernel holds z in registers as the wgmma A operand. A k-step of 16
+    gives thread t of a quad the columns 2t, 2t+1, 2t+8, 2t+9; so that the
+    thread can fetch them with one 16-byte load per pair of k-steps, it
+    owns features 32p + 8t .. 32p + 8t + 7 of every 32: +0..3 feed k-step
+    2p, +4..7 feed k-step 2p + 1. The weight slabs are packed in the same
+    order, which a dot product does not notice."""
+    pos = torch.arange(-(-f // 32) * 32)
+    chunk, e = pos // 8, pos % 8          # 16-byte chunk of K, element in it
+    return (32 * (chunk // 4) + 8 * (e // 2) + 4 * ((chunk // 2) % 2)
+            + 2 * (chunk % 2) + e % 2)
+
+
+def pack_head_weights(
+    weight: torch.Tensor, bias: torch.Tensor, anchors_per_cell: int,
+    num_classes: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """weight [A*C, F], bias [A*C] -> (slabs [A, Kp/8, 96, 8] bf16,
+    bias [A, 96] f32): one contiguous slab per anchor in the unswizzled
+    core-matrix layout `wgmma` reads B from (8 rows x 16 bytes a core
+    matrix; K chunks outermost), class rows padded to 96 and K to
+    Kp = ceil(F/32)*32 with zeros, K in `head_k_permutation` order."""
+    a, c = anchors_per_cell, num_classes
+    f = weight.shape[1]
+    perm = head_k_permutation(f).to(weight.device)
+    kp = perm.numel()
+    wpad = torch.zeros((a, CLASS_PAD, kp), dtype=torch.bfloat16,
+                       device=weight.device)
+    wpad[:, :c, :f] = weight.reshape(a, c, f).to(torch.bfloat16)
+    slabs = wpad[:, :, perm].reshape(a, CLASS_PAD, kp // 8, 8)
+    slabs = slabs.permute(0, 2, 1, 3).contiguous()
+    bias_p = torch.zeros((a, CLASS_PAD), dtype=torch.float32,
+                         device=bias.device)
+    bias_p[:, :c] = bias.reshape(a, c).float()
+    return slabs, bias_p
+
+
+# packed weights of the last few (weight, bias) pairs seen. An entry keeps
+# its source tensors alive, so their addresses cannot be handed to other
+# tensors while it is here; the version counter catches in-place updates
+# (tensors made under `torch.inference_mode` have none).
+_PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
+_PACKED_MAX = 4
+
+
+def _version(t: torch.Tensor) -> int:
+    return -1 if t.is_inference() else t._version
+
+
+def _packed_head_weights(weight, bias, a, c):
+    key = (weight.data_ptr(), _version(weight), bias.data_ptr(),
+           _version(bias), a, c)
+    hit = _PACKED.get(key)
+    if hit is None:
+        hit = (weight, bias, *pack_head_weights(weight, bias, a, c))
+        _PACKED[key] = hit
+        while len(_PACKED) > _PACKED_MAX:
+            _PACKED.popitem(last=False)
+    return hit[2], hit[3]
+
+
+def head_score_levels(
+    zs: Sequence[torch.Tensor],
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    anchors_per_cell: int,
+    num_classes: int,
+    person_class0: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused class-head predict conv + score reduction for all pyramid
+    levels in ONE launch.
+
+    zs: up to 8 head-feature tensors [B, H_l, W_l, F] (NHWC, as the JAX
+    function takes them), weight [A*C, F] (the 1x1 predict conv's OIHW
+    weight without its unit spatial dims), bias [A*C]. F must be a multiple
+    of 16 and <= 256, C <= 96. On CUDA, zs and weight must already be bf16
+    and bias f32, all contiguous and 16-byte aligned. Returns
+    (best_logit, person_logit), each [B, N] f32 with the levels
+    concatenated in order (N = sum_l H_l * W_l * A): the kernel writes
+    every level straight into these buffers.
+    """
+    a, c = anchors_per_cell, num_classes
+    if not 1 <= len(zs) <= MAX_LEVELS:
+        raise ValueError(f"expected 1..{MAX_LEVELS} levels, got {len(zs)}")
+    b, f = (zs[0].shape[0], zs[0].shape[3]) if zs[0].dim() == 4 else (0, 0)
+    cells = []
+    for z in zs:
+        if z.dim() != 4 or z.shape[0] != b or z.shape[3] != f:
+            raise ValueError(
+                "every level must be [B, H, W, F] with one B and one F: "
+                f"{[tuple(t.shape) for t in zs]}")
+        cells.append(z.shape[1] * z.shape[2])
+    if f % 16 or not 0 < f <= MAX_FEATURES:
+        raise ValueError(
+            f"F = {f}: must be a multiple of 16 and <= {MAX_FEATURES}")
+    if not 0 < c <= CLASS_PAD or not 0 <= person_class0 < c or a < 1:
+        raise ValueError(
+            f"{a} anchors x {c} classes, person class {person_class0}: "
+            f"expected 1..{CLASS_PAD} classes and a person class among them")
+    if weight.shape != (a * c, f) or bias.shape != (a * c,):
+        raise ValueError(
+            f"weight {tuple(weight.shape)} / bias {tuple(bias.shape)} do not "
+            f"match {a} anchors x {c} classes over {f} features"
+        )
+    if _on_cpu(*zs, weight, bias):
+        return head_score_levels_plain(zs, weight, bias, a, c, person_class0)
+    for li, z in enumerate(zs):
+        _check(z, f"z[{li}]", torch.bfloat16, 4)
+    _check(weight, "weight", torch.bfloat16, 2)
+    _check(bias, "bias", torch.float32, 1)
+    slabs, bias_p = _packed_head_weights(weight, bias, a, c)
+
+    nl = len(zs)
+    col0, n = [], 0
+    for n_cells in cells:
+        col0.append(n)
+        n += a * n_cells
+    best, person = torch.empty((2, b, n), dtype=torch.float32,
+                               device=weight.device)
+    ints = ctypes.c_int * nl
+    _launch("head_score", _lib().hbpe_head_score_levels,
+            (ctypes.c_void_p * nl)(*[z.data_ptr() for z in zs]),
+            ints(*[b * n_cells for n_cells in cells]), ints(*cells),
+            ints(*col0), nl, slabs.data_ptr(), bias_p.data_ptr(),
+            best.data_ptr(), person.data_ptr(), n, f, a, c, person_class0)
+    return best, person
+
+
 def head_score(
     z: torch.Tensor,
     weight: torch.Tensor,
@@ -132,33 +296,12 @@ def head_score(
     num_classes: int,
     person_class0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused class-head predict conv + score reduction.
-
-    z [B, H, W, F] head features (NHWC, as the JAX function takes them),
-    weight [A*C, F] (the 1x1 predict conv's OIHW weight without its unit
-    spatial dims), bias [A*C]. On CUDA, z and weight must already be bf16
-    and bias f32. Returns (best_logit, person_logit), each [B, H, W, A] f32.
-    """
-    if _on_cpu(z, weight, bias):
-        return head_score_plain(z, weight, bias, anchors_per_cell,
-                                num_classes, person_class0)
-    a, c = anchors_per_cell, num_classes
-    _check(z, "z", torch.bfloat16, 4)
-    _check(weight, "weight", torch.bfloat16, 2)
-    _check(bias, "bias", torch.float32, 1)
-    b, h, w, f = z.shape
-    if weight.shape != (a * c, f) or bias.shape != (a * c,):
-        raise ValueError(
-            f"weight {tuple(weight.shape)} / bias {tuple(bias.shape)} do not "
-            f"match {a} anchors x {c} classes over {f} features"
-        )
-    m = b * h * w
-    best = torch.empty((b, h, w, a), dtype=torch.float32, device=z.device)
-    person = torch.empty_like(best)
-    _launch("head_score", _lib().hbpe_head_score,
-            z.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-            best.data_ptr(), person.data_ptr(), m, f, a, c, person_class0)
-    return best, person
+    """One level of `head_score_levels` (the same kernel, one launch):
+    z [B, H, W, F] -> (best_logit, person_logit), each [B, H, W, A] f32."""
+    best, person = head_score_levels([z], weight, bias, anchors_per_cell,
+                                     num_classes, person_class0)
+    shape = (*z.shape[:3], anchors_per_cell)
+    return best.reshape(shape), person.reshape(shape)
 
 
 # --------------------------------------------------------------------- #

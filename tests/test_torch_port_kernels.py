@@ -10,6 +10,9 @@ import torch
 
 import jax.numpy as jnp
 
+from human_body_proportion_estimation_tpu.ops.heatmap import (
+    decode_heatmaps as jdecode,
+)
 from human_body_proportion_estimation_tpu.ops.nms import nms_mask as jnms
 from human_body_proportion_estimation_tpu.ops.pallas_kernels import (
     decode_heatmaps_pallas,
@@ -18,6 +21,9 @@ from human_body_proportion_estimation_tpu.ops.pallas_kernels import (
     nms_sweep_pallas_batched,
 )
 from human_body_proportion_estimation_tpu_torch.ops import kernels
+from human_body_proportion_estimation_tpu_torch.ops.heatmap import (
+    gate_keypoints,
+)
 
 
 def _planted_heatmaps(seed, shape=(6, 17, 96, 72)):
@@ -52,6 +58,51 @@ def test_decode_plain_all_negative_maps_zeroed():
     np.testing.assert_array_equal(sc.numpy(), np.asarray(sc_ref))
 
 
+def _nan_maps(case):
+    """[2, 17, 16, 12] finite maps with NaN planted in map (0, 3) only."""
+    hm = np.random.default_rng(3).normal(0.5, 1, (2, 17, 16, 12)).astype(
+        np.float32)
+    if case == "one NaN in a map":
+        hm[0, 3, 5, 7] = np.nan
+    elif case == "all-NaN map":
+        hm[0, 3] = np.nan
+    else:  # NaN beside +inf
+        hm[0, 3, 2, 2] = np.inf
+        hm[0, 3, 2, 3] = np.nan
+    hm[1, 4, 6, 6] = np.inf        # +inf alone stays an ordinary maximum
+    hm[1, 5] = -np.inf             # and an all -inf map an ordinary map
+    return hm
+
+
+@pytest.mark.parametrize(
+    "case", ["one NaN in a map", "all-NaN map", "NaN beside +inf"])
+def test_decode_nan_map_follows_the_jax_package(case):
+    """A map that holds a NaN: score NaN, keypoint (0, 0), invisible at any
+    threshold; every other map decodes as if the NaN were not there. Exact
+    (NaN-aware) against the Pallas kernel and `ops.heatmap.decode_heatmaps`
+    of the JAX package."""
+    hm = _nan_maps(case)
+    kp, sc = kernels.decode_heatmaps(torch.from_numpy(hm))
+    for ref in (decode_heatmaps_pallas(jnp.asarray(hm), interpret=True),
+                jdecode(jnp.asarray(hm))):
+        np.testing.assert_array_equal(kp.numpy(), np.asarray(ref[0]))
+        np.testing.assert_array_equal(sc.numpy(), np.asarray(ref[1]))
+    nan_at = np.zeros((2, 17), bool)
+    nan_at[0, 3] = True
+    np.testing.assert_array_equal(np.isnan(sc.numpy()), nan_at)
+    np.testing.assert_array_equal(kp.numpy()[0, 3], [0.0, 0.0])
+    visible = gate_keypoints(sc, [-np.inf] * 17).numpy()
+    np.testing.assert_array_equal(visible, ~nan_at)
+    # the other maps are those of the same batch without the NaN map
+    clean = hm.copy()
+    clean[0, 3] = 0.0
+    kp_c, sc_c = kernels.decode_heatmaps(torch.from_numpy(clean))
+    np.testing.assert_array_equal(kp.numpy()[~nan_at], kp_c.numpy()[~nan_at])
+    np.testing.assert_array_equal(sc.numpy()[~nan_at], sc_c.numpy()[~nan_at])
+    assert sc.numpy()[1, 4] == np.inf and tuple(kp.numpy()[1, 4]) == (6, 6)
+    assert sc.numpy()[1, 5] == -np.inf and tuple(kp.numpy()[1, 5]) == (0, 0)
+
+
 @pytest.mark.parametrize("hw,f,a,c", [((12, 16), 64, 9, 90),
                                       ((7, 5), 32, 3, 11)])
 def test_head_score_plain_matches_pallas(hw, f, a, c):
@@ -80,6 +131,108 @@ def test_head_score_plain_matches_pallas(hw, f, a, c):
     assert is_person.any()
     np.testing.assert_array_equal(
         person.numpy()[is_person], best.numpy()[is_person])
+
+
+def _head_case(seed, f, a, c, level_hw, batch=2):
+    rng = np.random.default_rng(seed)
+    zs = [rng.normal(0, 1, (batch, h, w, f)).astype(np.float32)
+          for h, w in level_hw]
+    kernel = rng.normal(0, 0.1, (1, 1, f, a * c)).astype(np.float32)
+    bias = rng.normal(0, 0.5, (a * c,)).astype(np.float32)
+    weight = torch.from_numpy(kernel.reshape(f, a * c).T.copy())  # [A*C, F]
+    return zs, kernel, bias, weight
+
+
+def test_head_score_levels_matches_pallas_level_by_level():
+    """The grouped entry point on three levels (the last a 20-cell level,
+    ragged against any tile) equals the per-level Pallas outputs flattened
+    and concatenated level-major. 1e-4: both sum exact bf16 products in
+    f32, in different orders."""
+    f, a, c = 64, 9, 90
+    zs, kernel, bias, weight = _head_case(1, f, a, c,
+                                          [(6, 8), (3, 4), (4, 5)])
+    refs = [head_score_epilogue(
+        jnp.asarray(z), jnp.asarray(kernel), jnp.asarray(bias), a, c,
+        person_class0=0, tile_m=128, interpret=True) for z in zs]
+    best_ref = np.concatenate(
+        [np.asarray(r[0]).reshape(2, -1) for r in refs], 1)
+    person_ref = np.concatenate(
+        [np.asarray(r[1]).reshape(2, -1) for r in refs], 1)
+
+    best, person = kernels.head_score_levels(
+        [torch.from_numpy(z) for z in zs], weight, torch.from_numpy(bias),
+        a, c, 0)
+    assert best.shape == person.shape == (2, (48 + 12 + 20) * a)
+    np.testing.assert_allclose(best.numpy(), best_ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(person.numpy(), person_ref,
+                               rtol=1e-4, atol=1e-4)
+    assert torch.all(person <= best)
+    is_person = person_ref >= best_ref
+    assert is_person.any()
+    np.testing.assert_array_equal(
+        person.numpy()[is_person], best.numpy()[is_person])
+    # the one-level wrapper is the same function on each level
+    col = 0
+    for z in zs:
+        lb, lp = kernels.head_score(torch.from_numpy(z), weight,
+                                    torch.from_numpy(bias), a, c, 0)
+        n = lb[0].numel()
+        assert torch.equal(lb.reshape(2, -1), best[:, col:col + n])
+        assert torch.equal(lp.reshape(2, -1), person[:, col:col + n])
+        col += n
+
+
+@pytest.mark.parametrize("what,level_f,a,c", [
+    ("more than 8 levels", [32] * 9, 3, 11),
+    ("levels with different F", [32, 48], 3, 11),
+    ("F not a multiple of 16", [40], 3, 11),
+    ("F above 256", [272], 3, 11),
+    ("C above 96", [32], 2, 97),
+])
+def test_head_score_levels_refuses_what_the_kernel_does_not_take(
+        what, level_f, a, c):
+    """Checked on the arguments alone, so on CPU tensors too."""
+    zs = [torch.zeros((1, 2, 2, f)) for f in level_f]
+    weight = torch.zeros((a * c, level_f[0]))
+    with pytest.raises(ValueError):
+        kernels.head_score_levels(zs, weight, torch.zeros(a * c), a, c, 0)
+
+
+@pytest.mark.parametrize("f,a,c", [(224, 9, 90), (48, 3, 11), (16, 2, 96)])
+def test_pack_head_weights_is_the_operand_order_the_kernel_reads(f, a, c):
+    """`pack_head_weights` against the addressing of csrc/head_score.cu,
+    replayed in numpy: k-step ks reads the K chunks 2ks and 2ks + 1 of an
+    anchor's slab as B[96, 16], and thread t of a quad feeds A's columns
+    2t, 2t+1, 2t+8, 2t+9 from features 32p + 8t + (0..3 | 4..7) for the
+    k-steps 2p | 2p + 1. The sum over k-steps must be z @ W^T exactly
+    (f64 sums of bf16 products), with zero pad rows."""
+    rng = np.random.default_rng(5)
+    weight = torch.from_numpy(rng.normal(0, 1, (a * c, f)).astype(
+        np.float32)).to(torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(0, 1, (a * c,)).astype(np.float32))
+    z = torch.from_numpy(rng.normal(0, 1, (64, f)).astype(np.float32)).to(
+        torch.bfloat16).float().numpy().astype(np.float64)
+    slabs, bias_p = kernels.pack_head_weights(weight, bias, a, c)
+    kp = -(-f // 32)
+    assert slabs.shape == (a, kp * 4, 96, 8) and slabs.is_contiguous()
+    assert bias_p.shape == (a, 96)
+    np.testing.assert_array_equal(bias_p[:, :c].numpy().ravel(), bias.numpy())
+    slabs = slabs.float().numpy().astype(np.float64)
+    y = np.zeros((a, 64, 96))
+    for ks in range(2 * kp):
+        p, odd = divmod(ks, 2)
+        a_frag = np.zeros((64, 16))
+        for t in range(4):
+            feats = 32 * p + 8 * t + 4 * odd + np.arange(4)
+            vals = np.where(feats < f, z[:, np.minimum(feats, f - 1)], 0.0)
+            a_frag[:, [2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9]] = vals
+        for an in range(a):
+            b_frag = np.concatenate(
+                [slabs[an, 2 * ks], slabs[an, 2 * ks + 1]], axis=1)
+            y[an] += a_frag @ b_frag.T
+    ref = (z @ weight.float().numpy().astype(np.float64).T).reshape(64, a, c)
+    np.testing.assert_array_equal(y.transpose(1, 0, 2)[:, :, :c], ref)
+    np.testing.assert_array_equal(y[:, :, c:], 0.0)
 
 
 def _nms_case(seed, n=128, dead=5):
@@ -159,6 +312,9 @@ def test_cpu_tensors_take_the_plain_version_without_counting():
     kernels.nms_sweep(torch.zeros((1, 4, 4)), torch.zeros((1, 4)), 0.5)
     kernels.head_score(torch.zeros((1, 2, 2, 16)), torch.zeros((9 * 4, 16)),
                        torch.zeros(9 * 4), 9, 4, 0)
+    kernels.head_score_levels(
+        [torch.zeros((1, 2, 2, 16)), torch.zeros((1, 1, 1, 16))],
+        torch.zeros((9 * 4, 16)), torch.zeros(9 * 4), 9, 4, 0)
     assert kernels.launch_counts() == {
         "decode_heatmaps": 0, "head_score": 0, "nms_sweep": 0}
 

@@ -29,6 +29,7 @@ from human_body_proportion_estimation_tpu_torch.models.efficientnet_lite import 
 from human_body_proportion_estimation_tpu_torch.models.weights import (
     flax_to_state_dict,
 )
+from human_body_proportion_estimation_tpu_torch.ops import kernels
 from tests.tiny_models import tiny_edet_config, tiny_w32_config
 
 
@@ -164,3 +165,37 @@ def test_efficientdet_tiny_scores_match_flax(edet_pair):
     assert np.mean(np.abs(got_best - ref_best) < 1e-4) > 0.95
     # the person logit is one of the values the max was taken over
     assert np.all(got_person <= got_best)
+
+
+def test_efficientdet_grouped_head_score_equals_the_per_level_path(
+        monkeypatch):
+    """`EfficientDet.forward` scores its five levels with one
+    `head_score_levels` call; its (best, person) must be, bit for bit, the
+    per-level `head_score` outputs flattened and concatenated level-major,
+    and a second forward must reuse the cached predict-conv parameters."""
+    torch.manual_seed(0)
+    tm = tedet.EfficientDet(_port_edet_config(tiny_edet_config()),
+                            dtype=torch.float32).eval()
+    imgs = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (2, 128, 96, 3)).astype(np.uint8))
+    calls = []
+    grouped = kernels.head_score_levels
+
+    def spy(zs, weight, bias, a, c, person0):
+        calls.append((zs, weight, bias, a, c, person0))
+        return grouped(zs, weight, bias, a, c, person0)
+
+    monkeypatch.setattr(kernels, "head_score_levels", spy)
+    with torch.no_grad():
+        best, person, boxes = tm(imgs)
+        tm(imgs)
+    assert len(calls) == 2 and len(calls[0][0]) == 5
+    zs, weight, bias, a, c, person0 = calls[0]
+    assert calls[1][1] is weight and calls[1][2] is bias
+    per_level = [kernels.head_score(z, weight, bias, a, c, person0)
+                 for z in zs]
+    assert torch.equal(
+        best, torch.cat([lb.reshape(2, -1) for lb, _ in per_level], 1))
+    assert torch.equal(
+        person, torch.cat([lp.reshape(2, -1) for _, lp in per_level], 1))
+    assert best.shape == person.shape == boxes.shape[:2]
