@@ -281,6 +281,12 @@ def check_head_score(k, dev, det_state):
                 k.head_score_plain(z, w, bias, a, c, 0),
                 f"head_score {name} {tuple(z.shape)}")
             err = max(err, e)
+    # another person class: the pack moves it to the column the kernel reads
+    e, _ = head_score_agrees(
+        k.head_score_levels(zs1, w, bias, a, c, 37),
+        k.head_score_levels_plain(zs1, w, bias, a, c, 37),
+        "head_score_levels B=1, person class 37")
+    err = max(err, e)
     torch.cuda.synchronize()
 
     def run_library():

@@ -14,9 +14,11 @@
 // `person` is the very register that entered the max, never recomputed, so
 //   `person <= best` always and `person == best` exactly where the person
 //   class wins (what models/efficientdet.person_slots tests). The max
-//   propagates NaN like `amax`; the class pad is excluded by column index,
-//   not by a large negative bias (the Pallas kernel's 128-lane -1e9 padding
-//   is not copied).
+//   propagates NaN like `amax`. Each anchor's C classes are padded to 96
+//   columns with zero weights and a -inf bias, which never win (the Pallas
+//   kernel's 128-lane, -1e9 padding is not copied), and the pack puts the
+//   person class in column 0 of its anchor, so that `person` is a fixed
+//   register: the max does not care about the order of the classes.
 // Bound on the H100: operations. At B = 16 the five levels hold
 //   M = 102400 rows: 2*M*224*810 = 37.2 GFLOP, ~38 us at 989 TFLOP/s,
 //   against 46 MB of z, ~14 us at 3.35 TB/s.
@@ -42,10 +44,12 @@
 //     make that possible the K axis is permuted (thread t of a quad owns 8
 //     consecutive features of every 32), and the pack applies the same
 //     permutation to W, which a dot product does not notice.
-//   - The class max is taken in the accumulator registers: bias added, max
-//     over the thread's 24 columns, two quad shuffles; the thread that
-//     holds column person0 writes `person` from that same register. No
-//     accumulator tile goes through shared memory.
+//   - The class max is taken in the accumulator registers: bias added (the
+//     pack lays each thread's 24 bias values out contiguously: 6 16-byte
+//     loads), max over the thread's 24 columns, two quad shuffles; thread 0
+//     of the quad, which holds column 0, writes `person` from that same
+//     register. Straight-line code, so that the compiler can overlap its
+//     latencies; no accumulator tile goes through shared memory.
 //   - A warpgroup keeps two accumulator sets and scores anchor a while the
 //     wgmmas of anchor a + 1 run (`wgmma.wait_group 1`): a chain of 14
 //     wgmmas alone leaves the tensor cores idle while it fills and drains,
@@ -53,6 +57,8 @@
 //   - The two warpgroups start their tiles half an anchor cycle apart (the
 //     order of anchors within a tile is free), so one's z loads and drain
 //     at a tile's end overlap the other's wgmmas.
+//   - While a tile is computed, `prefetch.global.L2` asks for the z rows of
+//     the warpgroup's next tile, so that its loads find them in L2.
 //   - Tiles are numbered over all levels (a tile never straddles two);
 //     ragged last tiles read zero rows and skip their stores.
 #include <cuda_bf16.h>
@@ -166,7 +172,7 @@ struct Consumer {
   const float *bias_s;
   uint64_t *full_bar, *empty_bar;
   float *best, *person;
-  int f, a_count, c, person0;
+  int f, a_count;
   int wg;    // warpgroup
   int wl;    // warp in the warpgroup: rows 16*wl .. +15 of the tile
   int gq;    // row of the warp's 8-row half
@@ -272,27 +278,26 @@ __device__ __forceinline__ void score_anchor(const Consumer &cx,
                                              float (&acc)[48], int anchor) {
 #pragma unroll
   for (int i = 0; i < 48; ++i) fence_reg(acc[i]);
-  const float *bs = cx.bias_s + anchor * kNPad;
-  const int pj = cx.person0 >> 3;
-  const bool p_odd = cx.person0 & 1;
+  // this thread's 24 bias values, in the order of its accumulator columns
+  const float4 *bs = reinterpret_cast<const float4 *>(
+      cx.bias_s + (anchor * 4 + cx.tq) * (kNPad / 4));
   float mx_lo = -INFINITY, mx_hi = -INFINITY, p_lo = 0.0f, p_hi = 0.0f;
 #pragma unroll
-  for (int j = 0; j < kNPad / 8; ++j) {
-    const int col = 8 * j + 2 * cx.tq;
-    const float2 bb = *reinterpret_cast<const float2 *>(bs + col);
-    float v0 = acc[4 * j + 0] + bb.x;
-    float v1 = acc[4 * j + 1] + bb.y;
-    float v2 = acc[4 * j + 2] + bb.x;
-    float v3 = acc[4 * j + 3] + bb.y;
-    if (8 * j + 8 > cx.c) {  // a block that holds pad columns (uniform)
-      if (col >= cx.c) v0 = v2 = -INFINITY;
-      if (col + 1 >= cx.c) v1 = v3 = -INFINITY;
-    }
-    mx_lo = max_nan(mx_lo, max_nan(v0, v1));
-    mx_hi = max_nan(mx_hi, max_nan(v2, v3));
-    if (j == pj) {  // uniform; only the quad's owner of person0 stores it
-      p_lo = p_odd ? v1 : v0;
-      p_hi = p_odd ? v3 : v2;
+  for (int jj = 0; jj < kNPad / 16; ++jj) {  // two 8-column blocks a load
+    const float4 bb = bs[jj];
+    const float v0 = acc[8 * jj + 0] + bb.x;
+    const float v1 = acc[8 * jj + 1] + bb.y;
+    const float v2 = acc[8 * jj + 2] + bb.x;
+    const float v3 = acc[8 * jj + 3] + bb.y;
+    const float v4 = acc[8 * jj + 4] + bb.z;
+    const float v5 = acc[8 * jj + 5] + bb.w;
+    const float v6 = acc[8 * jj + 6] + bb.z;
+    const float v7 = acc[8 * jj + 7] + bb.w;
+    mx_lo = max_nan(mx_lo, max_nan(max_nan(v0, v1), max_nan(v4, v5)));
+    mx_hi = max_nan(mx_hi, max_nan(max_nan(v2, v3), max_nan(v6, v7)));
+    if (jj == 0) {  // column 0 of the anchor (in quad thread 0): the person
+      p_lo = v0;
+      p_hi = v2;
     }
   }
   mx_lo = max_nan(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 1));
@@ -300,12 +305,14 @@ __device__ __forceinline__ void score_anchor(const Consumer &cx,
   mx_lo = max_nan(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, 2));
   mx_hi = max_nan(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, 2));
   if (cx.tq == 0) {
-    if (st.ok_lo) cx.best[st.out_lo + anchor] = mx_lo;
-    if (st.ok_hi) cx.best[st.out_hi + anchor] = mx_hi;
-  }
-  if (cx.tq == ((cx.person0 & 7) >> 1)) {
-    if (st.ok_lo) cx.person[st.out_lo + anchor] = p_lo;
-    if (st.ok_hi) cx.person[st.out_hi + anchor] = p_hi;
+    if (st.ok_lo) {
+      cx.best[st.out_lo + anchor] = mx_lo;
+      cx.person[st.out_lo + anchor] = p_lo;
+    }
+    if (st.ok_hi) {
+      cx.best[st.out_hi + anchor] = mx_hi;
+      cx.person[st.out_hi + anchor] = p_hi;
+    }
   }
 }
 
@@ -392,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                       const unsigned char *__restrict__ w_packed,
                       const float *__restrict__ bias_packed,
                       float *__restrict__ best, float *__restrict__ person,
-                      int f, int a_count, int c, int person0) {
+                      int f, int a_count) {
   constexpr int kSlabBytes = KP * 4 * kLBO;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char *slabs = smem;
@@ -464,8 +471,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   cx.person = person;
   cx.f = f;
   cx.a_count = a_count;
-  cx.c = c;
-  cx.person0 = person0;
   cx.wg = warp >> 2;
   cx.wl = warp & 3;
   cx.gq = lane >> 2;
@@ -500,7 +505,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int KP>
 cudaError_t launch(const Levels &lv, const void *w_packed,
                    const void *bias_packed, void *best, void *person, int f,
-                   int a_count, int c, int person0, int blocks,
+                   int a_count, int blocks,
                    cudaStream_t stream) {
   const size_t smem = (size_t)kStages * KP * 4 * kLBO +
                       (size_t)a_count * kNPad * 4 + 2 * kStages * 8;
@@ -516,7 +521,7 @@ cudaError_t launch(const Levels &lv, const void *w_packed,
   }
   head_score_kernel<KP><<<blocks, kThreads, smem, stream>>>(
       lv, (const unsigned char *)w_packed, (const float *)bias_packed,
-      (float *)best, (float *)person, f, a_count, c, person0);
+      (float *)best, (float *)person, f, a_count);
   return cudaGetLastError();
 }
 
@@ -524,19 +529,19 @@ cudaError_t launch(const Levels &lv, const void *w_packed,
 
 // One launch for n_levels <= 8 levels. z[l] [rows[l], F] bf16 with
 // rows[l] = B * cells[l]; w_packed [A][ceil(F/32)*4][96][8] bf16 and
-// bias_packed [A][96] f32 as ops/kernels.pack_head_weights lays them out;
-// best, person [B, out_stride] f32, level l starting at column col0[l].
-// F must be a multiple of 16 and <= 256, C <= 96; pointers 16-byte aligned.
+// bias_packed [A][4][24] f32 as ops/kernels.pack_head_weights lays them out
+// (classes padded to 96 a anchor, the person class first); best, person
+// [B, out_stride] f32, level l starting at column col0[l]. F must be a
+// multiple of 16 and <= 256; pointers 16-byte aligned.
 extern "C" int hbpe_head_score_levels(const void *const *z, const int *rows,
                                       const int *cells, const int *col0,
                                       int n_levels, const void *w_packed,
                                       const void *bias_packed, void *best,
                                       void *person, int out_stride, int f,
-                                      int a_count, int c, int person0,
+                                      int a_count,
                                       void *stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || f <= 0 || f % 16 != 0 ||
-      f > 32 * kMaxKPairs || a_count < 1 || c < 1 || c > kNPad ||
-      person0 < 0 || person0 >= c) {
+      f > 32 * kMaxKPairs || a_count < 1) {
     return (int)cudaErrorInvalidValue;
   }
   Levels lv;
@@ -573,36 +578,36 @@ extern "C" int hbpe_head_score_levels(const void *const *z, const int *rows,
 
   switch ((f + 31) / 32) {
     case 1:
-      err = launch<1>(lv, w_packed, bias_packed, best, person, f, a_count, c,
-                      person0, blocks, st);
+      err = launch<1>(lv, w_packed, bias_packed, best, person, f, a_count,
+                      blocks, st);
       break;
     case 2:
-      err = launch<2>(lv, w_packed, bias_packed, best, person, f, a_count, c,
-                      person0, blocks, st);
+      err = launch<2>(lv, w_packed, bias_packed, best, person, f, a_count,
+                      blocks, st);
       break;
     case 3:
-      err = launch<3>(lv, w_packed, bias_packed, best, person, f, a_count, c,
-                      person0, blocks, st);
+      err = launch<3>(lv, w_packed, bias_packed, best, person, f, a_count,
+                      blocks, st);
       break;
     case 4:
-      err = launch<4>(lv, w_packed, bias_packed, best, person, f, a_count, c,
-                      person0, blocks, st);
+      err = launch<4>(lv, w_packed, bias_packed, best, person, f, a_count,
+                      blocks, st);
       break;
     case 5:
-      err = launch<5>(lv, w_packed, bias_packed, best, person, f, a_count, c,
-                      person0, blocks, st);
+      err = launch<5>(lv, w_packed, bias_packed, best, person, f, a_count,
+                      blocks, st);
       break;
     case 6:
-      err = launch<6>(lv, w_packed, bias_packed, best, person, f, a_count, c,
-                      person0, blocks, st);
+      err = launch<6>(lv, w_packed, bias_packed, best, person, f, a_count,
+                      blocks, st);
       break;
     case 7:
-      err = launch<7>(lv, w_packed, bias_packed, best, person, f, a_count, c,
-                      person0, blocks, st);
+      err = launch<7>(lv, w_packed, bias_packed, best, person, f, a_count,
+                      blocks, st);
       break;
     default:
-      err = launch<8>(lv, w_packed, bias_packed, best, person, f, a_count, c,
-                      person0, blocks, st);
+      err = launch<8>(lv, w_packed, bias_packed, best, person, f, a_count,
+                      blocks, st);
       break;
   }
   return (int)err;

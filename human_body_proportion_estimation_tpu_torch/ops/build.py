@@ -113,9 +113,10 @@ def load_library() -> ctypes.CDLL:
     lib.hbpe_decode_heatmaps.argtypes = [p, p, p, i, i, i, p]
     lib.hbpe_nms_sweep.argtypes = [p, p, p, i, i, f, p]
     # level arrays (z pointers, rows, cells, first columns) and their count,
-    # packed weights and bias, best, person, then the scalars and the stream
+    # packed weights and bias, best, person, then out_stride, F, A and the
+    # stream
     lib.hbpe_head_score_levels.argtypes = [
-        p, p, p, p, i, p, p, p, p, i, i, i, i, i, p]
+        p, p, p, p, i, p, p, p, p, i, i, i, p]
     for fn in (lib.hbpe_decode_heatmaps, lib.hbpe_nms_sweep,
                lib.hbpe_head_score_levels):
         fn.restype = ctypes.c_int

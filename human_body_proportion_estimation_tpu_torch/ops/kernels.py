@@ -175,26 +175,39 @@ def head_k_permutation(f: int) -> torch.Tensor:
 
 def pack_head_weights(
     weight: torch.Tensor, bias: torch.Tensor, anchors_per_cell: int,
-    num_classes: int,
+    num_classes: int, person_class0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """weight [A*C, F], bias [A*C] -> (slabs [A, Kp/8, 96, 8] bf16,
-    bias [A, 96] f32): one contiguous slab per anchor in the unswizzled
-    core-matrix layout `wgmma` reads B from (8 rows x 16 bytes a core
-    matrix; K chunks outermost), class rows padded to 96 and K to
-    Kp = ceil(F/32)*32 with zeros, K in `head_k_permutation` order."""
+    bias [A, 4, 24] f32), the operands as csrc/head_score.cu reads them.
+
+    Classes: each anchor's C classes are padded to 96 columns with zero
+    weights and a -inf bias, and the person class changes places with
+    class 0, so that the kernel finds the person logit in a fixed register
+    (the class max does not depend on the order).
+    Slabs: one contiguous slab per anchor in the unswizzled core-matrix
+    layout `wgmma` reads B from (8 rows x 16 bytes a core matrix; K chunks
+    outermost), K padded to Kp = ceil(F/32)*32 with zeros and taken in
+    `head_k_permutation` order.
+    Bias: thread t of a quad holds the columns 8j + 2t, 8j + 2t + 1
+    (j = 0..11) of an accumulator row; its 24 bias values lie together, in
+    that order, at [anchor, t]."""
     a, c = anchors_per_cell, num_classes
     f = weight.shape[1]
+    order = torch.arange(c, device=weight.device)
+    order[0], order[person_class0] = person_class0, 0
     perm = head_k_permutation(f).to(weight.device)
     kp = perm.numel()
     wpad = torch.zeros((a, CLASS_PAD, kp), dtype=torch.bfloat16,
                        device=weight.device)
-    wpad[:, :c, :f] = weight.reshape(a, c, f).to(torch.bfloat16)
+    wpad[:, :c, :f] = weight.reshape(a, c, f)[:, order].to(torch.bfloat16)
     slabs = wpad[:, :, perm].reshape(a, CLASS_PAD, kp // 8, 8)
     slabs = slabs.permute(0, 2, 1, 3).contiguous()
-    bias_p = torch.zeros((a, CLASS_PAD), dtype=torch.float32,
-                         device=bias.device)
-    bias_p[:, :c] = bias.reshape(a, c).float()
-    return slabs, bias_p
+    bias_p = torch.full((a, CLASS_PAD), float("-inf"), dtype=torch.float32,
+                        device=bias.device)
+    bias_p[:, :c] = bias.reshape(a, c)[:, order.to(bias.device)].float()
+    # [A, j, t, i] -> [A, t, j, i]: column 8j + 2t + i
+    bias_p = bias_p.reshape(a, CLASS_PAD // 8, 4, 2).permute(0, 2, 1, 3)
+    return slabs, bias_p.reshape(a, 4, CLASS_PAD // 4).contiguous()
 
 
 # packed weights of the last few (weight, bias) pairs seen. An entry keeps
@@ -209,12 +222,13 @@ def _version(t: torch.Tensor) -> int:
     return -1 if t.is_inference() else t._version
 
 
-def _packed_head_weights(weight, bias, a, c):
+def _packed_head_weights(weight, bias, a, c, person0):
     key = (weight.data_ptr(), _version(weight), bias.data_ptr(),
-           _version(bias), a, c)
+           _version(bias), a, c, person0)
     hit = _PACKED.get(key)
     if hit is None:
-        hit = (weight, bias, *pack_head_weights(weight, bias, a, c))
+        hit = (weight, bias,
+               *pack_head_weights(weight, bias, a, c, person0))
         _PACKED[key] = hit
         while len(_PACKED) > _PACKED_MAX:
             _PACKED.popitem(last=False)
@@ -270,7 +284,7 @@ def head_score_levels(
         _check(z, f"z[{li}]", torch.bfloat16, 4)
     _check(weight, "weight", torch.bfloat16, 2)
     _check(bias, "bias", torch.float32, 1)
-    slabs, bias_p = _packed_head_weights(weight, bias, a, c)
+    slabs, bias_p = _packed_head_weights(weight, bias, a, c, person_class0)
 
     nl = len(zs)
     col0, n = [], 0
@@ -284,7 +298,7 @@ def head_score_levels(
             (ctypes.c_void_p * nl)(*[z.data_ptr() for z in zs]),
             ints(*[b * n_cells for n_cells in cells]), ints(*cells),
             ints(*col0), nl, slabs.data_ptr(), bias_p.data_ptr(),
-            best.data_ptr(), person.data_ptr(), n, f, a, c, person_class0)
+            best.data_ptr(), person.data_ptr(), n, f, a)
     return best, person
 
 

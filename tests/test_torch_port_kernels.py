@@ -198,25 +198,28 @@ def test_head_score_levels_refuses_what_the_kernel_does_not_take(
         kernels.head_score_levels(zs, weight, torch.zeros(a * c), a, c, 0)
 
 
-@pytest.mark.parametrize("f,a,c", [(224, 9, 90), (48, 3, 11), (16, 2, 96)])
-def test_pack_head_weights_is_the_operand_order_the_kernel_reads(f, a, c):
+@pytest.mark.parametrize("f,a,c,person0", [(224, 9, 90, 0), (48, 3, 11, 4),
+                                           (16, 2, 96, 95)])
+def test_pack_head_weights_is_the_operand_order_the_kernel_reads(
+        f, a, c, person0):
     """`pack_head_weights` against the addressing of csrc/head_score.cu,
     replayed in numpy: k-step ks reads the K chunks 2ks and 2ks + 1 of an
-    anchor's slab as B[96, 16], and thread t of a quad feeds A's columns
-    2t, 2t+1, 2t+8, 2t+9 from features 32p + 8t + (0..3 | 4..7) for the
-    k-steps 2p | 2p + 1. The sum over k-steps must be z @ W^T exactly
-    (f64 sums of bf16 products), with zero pad rows."""
+    anchor's slab as B[96, 16]; thread t of a quad feeds A's columns 2t,
+    2t+1, 2t+8, 2t+9 from features 32p + 8t + (0..3 | 4..7) for the k-steps
+    2p | 2p + 1, and adds to its accumulator columns 8j + 2t, 8j + 2t + 1
+    the bias values 2j, 2j + 1 of its own 24. The result must be
+    z @ W^T + bias exactly (f64 sums of bf16 products) with the person
+    class and class 0 exchanged, and -inf in the pad columns."""
     rng = np.random.default_rng(5)
     weight = torch.from_numpy(rng.normal(0, 1, (a * c, f)).astype(
         np.float32)).to(torch.bfloat16)
     bias = torch.from_numpy(rng.normal(0, 1, (a * c,)).astype(np.float32))
     z = torch.from_numpy(rng.normal(0, 1, (64, f)).astype(np.float32)).to(
         torch.bfloat16).float().numpy().astype(np.float64)
-    slabs, bias_p = kernels.pack_head_weights(weight, bias, a, c)
+    slabs, bias_p = kernels.pack_head_weights(weight, bias, a, c, person0)
     kp = -(-f // 32)
     assert slabs.shape == (a, kp * 4, 96, 8) and slabs.is_contiguous()
-    assert bias_p.shape == (a, 96)
-    np.testing.assert_array_equal(bias_p[:, :c].numpy().ravel(), bias.numpy())
+    assert bias_p.shape == (a, 4, 24) and bias_p.is_contiguous()
     slabs = slabs.float().numpy().astype(np.float64)
     y = np.zeros((a, 64, 96))
     for ks in range(2 * kp):
@@ -230,9 +233,18 @@ def test_pack_head_weights_is_the_operand_order_the_kernel_reads(f, a, c):
             b_frag = np.concatenate(
                 [slabs[an, 2 * ks], slabs[an, 2 * ks + 1]], axis=1)
             y[an] += a_frag @ b_frag.T
-    ref = (z @ weight.float().numpy().astype(np.float64).T).reshape(64, a, c)
-    np.testing.assert_array_equal(y.transpose(1, 0, 2)[:, :, :c], ref)
-    np.testing.assert_array_equal(y[:, :, c:], 0.0)
+    for t in range(4):
+        for j in range(12):
+            for i in range(2):
+                y[:, :, 8 * j + 2 * t + i] += (
+                    bias_p[:, t, 2 * j + i].numpy().astype(np.float64)[:, None])
+    ref = (z @ weight.float().numpy().astype(np.float64).T
+           + bias.numpy().astype(np.float64)).reshape(64, a, c)
+    order = np.arange(c)
+    order[0], order[person0] = person0, 0
+    np.testing.assert_array_equal(y.transpose(1, 0, 2)[:, :, :c],
+                                  ref[:, :, order])
+    np.testing.assert_array_equal(y[:, :, c:], -np.inf)
 
 
 def _nms_case(seed, n=128, dead=5):
