@@ -424,12 +424,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // Tiles are dealt in groups of kConsumerWGs consecutive tiles; this block
-  // takes groups blockIdx.x, blockIdx.x + gridDim.x, ... (grid <= groups).
+  // Tiles are dealt in rounds of gridDim.x * kConsumerWGs: within a round
+  // first one tile to warpgroup 0 of every block, then to warpgroup 1. So
+  // a last, partial round spreads over as many SMs as it has tiles, where
+  // a warpgroup alone on its SM runs nearly twice as fast. (grid <= tiles)
   const int n_tiles = lv.tile0[lv.n_levels];
-  const int n_groups = (n_tiles + kConsumerWGs - 1) / kConsumerWGs;
-  const int iters =
-      (n_groups - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int round = (int)gridDim.x * kConsumerWGs;
+  const int iters = (n_tiles - (int)blockIdx.x + round - 1) / round;
   // Warpgroup g starts its first tile at slab (g * A) / kConsumerWGs of the
   // stream and idles on the slabs before and after its own; every warpgroup
   // passes every slab so that the ring's barriers stay in step.
@@ -488,11 +489,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int shift = (cx.wg * a_count) / kConsumerWGs;
   idle(cx, st, shift);
   for (int it = 0; it < iters; ++it) {
-    const int tile =
-        (it * (int)gridDim.x + (int)blockIdx.x) * kConsumerWGs + cx.wg;
+    const int tile = it * round + cx.wg * (int)gridDim.x + (int)blockIdx.x;
     if (tile < n_tiles) {
       load_tile<KP>(cx, st, areg, tile);
-      const int next_tile = tile + (int)gridDim.x * kConsumerWGs;
+      const int next_tile = tile + round;
       if (next_tile < n_tiles) prefetch_tile(cx, next_tile);
       run_tile<KP>(cx, st, areg, acc_a, acc_b);
     } else {
@@ -572,8 +572,7 @@ extern "C" int hbpe_head_score_levels(const void *const *z, const int *rows,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
-  const int groups = (tiles + kConsumerWGs - 1) / kConsumerWGs;
-  const int blocks = groups < sms ? groups : sms;
+  const int blocks = tiles < sms ? tiles : sms;
   cudaStream_t st = (cudaStream_t)stream;
 
   switch ((f + 31) / 32) {
