@@ -27,9 +27,11 @@
 //   memory, and the main path's 816 maps each have a warp of their own.
 //   A warp reads a buffer as conflict-free float4 (consecutive lanes,
 //   consecutive 16 bytes) into two independent (value, index) pairs and a
-//   NaN flag, and combines pairs with "greater value, or equal value and
-//   lower index", which gives the lowest-index tie whatever order the
-//   partial results meet in; five shuffle steps finish a map. Nothing is
+//   NaN flag; a lane's 54 vectors a map are a long dependent chain, so each
+//   vector is reduced within itself first and costs the chain one step.
+//   Pairs are combined with "greater value, or equal value and lower
+//   index", which gives the lowest-index tie whatever order the partial
+//   results meet in; five shuffle steps finish a map. Nothing is
 //   shared between warps: no __syncthreads(), no serial tail.
 //   Maps whose byte size is not a multiple of 16 or whose base is
 //   unaligned take plain loads from device memory inside the same kernel.
@@ -59,13 +61,27 @@ __device__ __forceinline__ void take_better(float &best, int &idx, float v,
   }
 }
 
+// Four consecutive values at indices i .. i + 3 into (best, idx). Calls on
+// one (best, idx) pair come with increasing i, so "greater" alone keeps the
+// lowest index on ties; the four are first reduced among themselves, which
+// leaves one dependent step a call on the running pair. (A NaN may hide its
+// neighbours here: the map then reports NaN / (0, 0) whatever idx is.)
 __device__ __forceinline__ void take_vec(float &best, int &idx, int &nan,
                                          float4 v, int i) {
   nan |= (v.x != v.x) | (v.y != v.y) | (v.z != v.z) | (v.w != v.w);
-  take_better(best, idx, v.x, i);
-  take_better(best, idx, v.y, i + 1);
-  take_better(best, idx, v.z, i + 2);
-  take_better(best, idx, v.w, i + 3);
+  const bool yx = v.y > v.x;
+  float a = yx ? v.y : v.x;
+  int ai = yx ? i + 1 : i;
+  const bool wz = v.w > v.z;
+  const float b = wz ? v.w : v.z;
+  const int bi = wz ? i + 3 : i + 2;
+  const bool ba = b > a;
+  a = ba ? b : a;
+  ai = ba ? bi : ai;
+  if (a > best) {
+    best = a;
+    idx = ai;
+  }
 }
 
 // The chunk ring of one warp: which chunk of which map comes next.
