@@ -5,26 +5,31 @@
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --ptxas         # also print nvcc -Xptxas -v
     python3 chip_smoke.py --profile       # + torch.profiler of B=16 serving
-    python3 chip_smoke.py --time-kernels [--repo DIR]
-                                          # decode and head-score times only,
-                                          # of this checkout or of another
-                                          # checkout of the port (e.g. the
-                                          # parent commit, to compare two
-                                          # versions on one card in one call)
+    python3 chip_smoke.py --time-kernels [--repo DIR] [--kernel NAME]
+                                          # kernel times only (all, or those
+                                          # whose name contains NAME), of this
+                                          # checkout or of another checkout of
+                                          # the port (e.g. the parent commit,
+                                          # to compare two versions on one
+                                          # card in one call)
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
   1. setup: the card, then build every kernel of `csrc/` from the checkout.
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the main path's shapes — heatmap decode [48,17,96,72] with
      planted ties, all-negative rows and NaN maps (exact, NaN-aware), NMS
-     sweep [16,128] at t = 0.5 and 0.3 with an at-threshold pair (exact),
+     sweep [16,128] at t = 0.5 and 0.3 with an at-threshold pair, then the
+     cases of tests/torch_port_nms_cases.py (NaN and infinite boxes, K from
+     1 to 256, B = 1, dead, identical and zero-area boxes, a chain across
+     three 32-box blocks; all exact),
      head-score on the five pyramid levels with the certified predict_pw
      weights, at B=16 and B=1, through the grouped one-launch entry point
      and the one-level wrapper (|kernel - plain| <= 1e-3 + 1e-3 |plain|).
      Each is timed with CUDA events beside its plain version and a
      one-call PyTorch yardstick: `ms` launched eagerly back to back, which
      includes the host's time per call, and `graph_ms` replayed from a CUDA
-     graph, which is the card alone.
+     graph, which is the card alone; the NMS sweep, which no library call
+     computes, beside a kernel that does nothing in its launch shape.
   3. main path: `InferencePipeline(device="cuda")` on the certified
      checkpoint answers 3 `infer_bytes` requests (scenes of
      tests/data/torch_port) and one `infer_serving` batch of 16, with the
@@ -209,9 +214,23 @@ def nms_inputs(dev, b=16, k=128, seed=1):
     return boxes.to(dev).contiguous(), scores.to(dev).contiguous()
 
 
+def load_nms_cases():
+    """The cases of tests/torch_port_nms_cases.py, the inputs the CPU tests
+    share with this script, loaded from the file beside this one."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_nms_cases",
+        os.path.join(REPO, "tests", "torch_port_nms_cases.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.nms_cases()
+
+
 def check_nms(k, dev):
     import torch
 
+    cases = load_nms_cases()
     boxes, scores = nms_inputs(dev)
     for t in (0.5, 0.3):
         got = k.nms_sweep(boxes, scores, t)
@@ -219,16 +238,57 @@ def check_nms(k, dev):
         torch.cuda.synchronize()
         assert torch.equal(got, ref), f"nms: keep differs from plain at {t}"
     assert bool(got.any()) and not bool(got.all())
-    ms = cuda_ms(lambda: k.nms_sweep(boxes, scores, 0.5), 200)
+    # the shared cases: every one is checked before any failure is raised,
+    # and a mask that differs is printed beside the plain version's
+    failed = []
+    for name, c_boxes, c_scores, t, expected in cases:
+        c_boxes = torch.from_numpy(c_boxes).to(dev)
+        c_scores = torch.from_numpy(c_scores).to(dev)
+        got = k.nms_sweep(c_boxes, c_scores, t)
+        ref = k.nms_sweep_plain(c_boxes, c_scores, t)
+        torch.cuda.synchronize()
+        if expected is not None:
+            assert ref.cpu().numpy().tolist() == expected.tolist(), \
+                f"nms case {name}: the plain version misses the stated mask"
+        if not torch.equal(got, ref):
+            failed.append(name)
+            img = int(torch.nonzero((got != ref).any(-1))[0])
+            at = torch.nonzero(got[img] != ref[img]).flatten().tolist()
+            log(f"nms case {name!r} at t = {t}: kernel differs from plain in "
+                f"{int((got != ref).sum())} places; image {img}, boxes {at}")
+            if c_boxes.shape[1] <= 8:
+                log(f"  boxes  {c_boxes[img].tolist()}")
+                log(f"  kernel {got[img].tolist()}")
+                log(f"  plain  {ref[img].tolist()}")
+    assert not failed, f"nms: keep differs from plain in cases {failed}"
+    log(f"nms_sweep: {len(cases)} shared cases exact against plain")
+
+    def sweep16():
+        k.nms_sweep(boxes, scores, 0.5)
+
+    boxes1, scores1 = boxes[3:4].contiguous(), scores[3:4].contiguous()
+
+    def sweep1():
+        k.nms_sweep(boxes1, scores1, 0.5)
+
+    ms = cuda_ms(sweep16, 200)
     plain_ms = cuda_ms(lambda: k.nms_sweep_plain(boxes, scores, 0.5), 3, 1)
     b, kk = scores.shape
     b_ms, b_by = bound(boxes.numel() * 4 + scores.numel() * 4 + b * kk,
                        14.0 * b * kk * kk, F32_FLOP_PER_S)
+    g_ms = graph_ms(sweep16, 100)
+    line = (f"nms_sweep [16,128]: eager {ms:.4f} ms, graph replay "
+            f"{g_ms:.4f} ms; [1,128]: eager {cuda_ms(sweep1, 200):.4f} ms, "
+            f"graph replay {graph_ms(sweep1, 100):.4f} ms")
+    if hasattr(k, "empty_launch"):
+        e16 = graph_ms(lambda: k.empty_launch(16 * k.NMS_CLUSTER), 100)
+        e1 = graph_ms(lambda: k.empty_launch(k.NMS_CLUSTER), 100)
+        line += ("; an empty kernel of the same launch shape, graph replay: "
+                 f"for 16 images {e16:.4f} ms, for 1 image {e1:.4f} ms")
+    log(line)
     return dict(name="nms_sweep", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                graph_ms=graph_ms(lambda: k.nms_sweep(boxes, scores, 0.5),
-                                  100),
-                library_graph_ms=None)
+                graph_ms=g_ms, library_graph_ms=None)
 
 
 def head_score_agrees(got, ref, what):
@@ -323,13 +383,18 @@ def check_head_score(k, dev, det_state):
                 library_ms=lib_ms, graph_ms=g_ms, library_graph_ms=g_lib)
 
 
-def time_kernels(k, dev, det_state):
+def time_kernels(k, dev, det_state, only=""):
     """Times only, no checks, through entry points every version of the
-    port has: the decode kernel at [48,17,96,72] beside torch.max, and the
+    port has: the decode kernel at [48,17,96,72] beside torch.max, the
     head-score kernel on the five pyramid levels at B=16, level by level
     (`head_score`) and, where the version has it, grouped
-    (`head_score_levels`). Each both launched eagerly back to back (host
-    time included) and replayed from a CUDA graph (the card alone)."""
+    (`head_score_levels`), and the NMS sweep at [16,128] and [1,128]
+    (and on a ladder of boxes, the longest chain of decisions a sweep can
+    meet) beside, where the version has it, a kernel that does nothing in
+    the launch shapes of the NMS kernel and of its first version. Each
+    both launched eagerly back to back (host time included) and replayed
+    from a CUDA graph (the card alone). `only` keeps the cases whose name
+    contains it."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -374,7 +439,33 @@ def time_kernels(k, dev, det_state):
     if hasattr(k, "head_score_levels"):
         cases.append(("head_score_levels", lambda: k.head_score_levels(
             zs, w, bias, a, c, 0), 50))
+    boxes, scores = nms_inputs(dev)
+    boxes1, scores1 = boxes[3:4].contiguous(), scores[3:4].contiguous()
+    # a ladder: every box overlaps only its two neighbours, so the kept boxes
+    # alternate and each decision hangs on the one before it, the longest
+    # chain a sweep can meet
+    step = 25.0 * torch.arange(128, device=dev)
+    ladder = torch.stack([step, 0 * step, step + 100.0, 0 * step + 100.0],
+                         -1).expand(16, 128, 4).contiguous()
+    cases += [
+        ("nms_sweep [16,128]", lambda: k.nms_sweep(boxes, scores, 0.5), 200),
+        ("nms_sweep [1,128]", lambda: k.nms_sweep(boxes1, scores1, 0.5), 200),
+        ("nms_sweep [16,128] ladder",
+         lambda: k.nms_sweep(ladder, scores, 0.5), 200),
+    ]
+    if hasattr(k, "empty_launch"):
+        # the launch shapes of this NMS kernel (a cluster of thread blocks of
+        # 1024 threads an image) and of its first version (128 threads)
+        cases += [
+            (f"empty kernel for nms_sweep, {blocks} x {threads} threads",
+             lambda blocks=blocks, threads=threads: k.empty_launch(
+                 blocks, threads), 200)
+            for blocks, threads in (
+                (16 * k.NMS_CLUSTER, k.NMS_THREADS), (16, 128),
+                (k.NMS_CLUSTER, k.NMS_THREADS), (1, 128))]
     for name, fn, iters in cases:
+        if only not in name:
+            continue
         log(f"time {name}: eager {cuda_ms(fn, iters):.4f} ms, graph replay "
             f"{graph_ms(fn, min(iters, 50)):.4f} ms")
 
@@ -503,6 +594,8 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--time-kernels", action="store_true")
+    ap.add_argument("--kernel", default="",
+                    help="with --time-kernels: only the cases named so")
     ap.add_argument("--repo", default=REPO,
                     help="checkout whose port package is built and run")
     args = ap.parse_args()
@@ -532,7 +625,7 @@ def main() -> int:
         REPO, "human_body_proportion_estimation_tpu", "checkpoints",
         "certified_lite4_w32.npz"))
     if args.time_kernels:
-        time_kernels(k, dev, det_state)
+        time_kernels(k, dev, det_state, args.kernel)
         print(card_line(), flush=True)
         return 0
     results = [check_decode(k, dev), check_head_score(k, dev, det_state),

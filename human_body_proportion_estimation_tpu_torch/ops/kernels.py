@@ -332,7 +332,10 @@ def nms_sweep(
     boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float
 ) -> torch.Tensor:
     """Batched greedy-NMS keep masks: boxes [B, K, 4] xyxy sorted by
-    descending score, scores [B, K] -> keep [B, K] bool. K <= 256."""
+    descending score, scores [B, K] -> keep [B, K] bool. K <= 256. A box
+    with a NaN coordinate overlaps nothing (every IoU with it is NaN), and
+    a row whose score is 0, negative or NaN is dead, in the kernel as in
+    the plain version."""
     if _on_cpu(boxes, scores):
         return nms_sweep_plain(boxes, scores, iou_threshold)
     _check(boxes, "boxes", torch.float32, 3)
@@ -348,3 +351,18 @@ def nms_sweep(
             boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
             float(iou_threshold))
     return keep
+
+
+# launch shape of csrc/nms_sweep.cu: thread blocks an image, threads a block
+NMS_CLUSTER, NMS_THREADS = 4, 1024
+
+
+def empty_launch(blocks: int, threads: int = NMS_THREADS) -> None:
+    """Launch a kernel that does nothing, on the current CUDA stream.
+    `empty_launch(NMS_CLUSTER * B)` has the launch shape of `nms_sweep` on B
+    images: timed beside it, it shows how much of the sweep's time is the
+    launch itself. Not counted in `LAUNCHES`."""
+    err = _lib().hbpe_empty_launch(
+        int(blocks), int(threads), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty_launch: CUDA launch failed with error {err}")

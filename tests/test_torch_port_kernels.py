@@ -24,6 +24,7 @@ from human_body_proportion_estimation_tpu_torch.ops import kernels
 from human_body_proportion_estimation_tpu_torch.ops.heatmap import (
     gate_keypoints,
 )
+from tests.torch_port_nms_cases import nms_cases
 
 
 def _planted_heatmaps(seed, shape=(6, 17, 96, 72)):
@@ -316,6 +317,103 @@ def test_nms_at_threshold_follows_division_form():
                              torch.from_numpy(scores[None]), 0.3)[0]
     ref = np.asarray(jnms(jnp.asarray(pair), jnp.asarray(scores), 0.3))
     assert keep.tolist() == ref.tolist() == [True, not overlaps]
+
+
+_NMS_CASES = nms_cases()
+
+
+@pytest.mark.parametrize("case", _NMS_CASES, ids=[c[0] for c in _NMS_CASES])
+def test_nms_plain_on_the_shared_cases_follows_the_jax_package(case):
+    """The cases `chip_smoke.py` holds the CUDA kernel to on the card, here
+    for the plain version: exact keep masks against the JAX path's
+    `nms_mask` image by image, against the Pallas sweep (interpret mode,
+    batched), and against the mask the case states. NaN coordinates make
+    every IoU with their box NaN, so such a box overlaps nothing; a NaN
+    score is dead."""
+    _, boxes, scores, t, expected = case
+    got = kernels.nms_sweep(torch.from_numpy(boxes),
+                            torch.from_numpy(scores), t).numpy()
+    assert got.dtype == np.bool_ and got.shape == scores.shape
+    for i in range(boxes.shape[0]):
+        ref = np.asarray(jnms(jnp.asarray(boxes[i]), jnp.asarray(scores[i]),
+                              t))
+        np.testing.assert_array_equal(got[i], ref)
+    np.testing.assert_array_equal(got, np.asarray(nms_sweep_pallas_batched(
+        jnp.asarray(boxes), jnp.asarray(scores), t, interpret=True)))
+    if expected is not None:
+        np.testing.assert_array_equal(got, expected)
+
+
+def _block_sweep_replay(overlapping, alive):
+    """The sweep of csrc/nms_sweep.cu on one image, replayed in Python on a
+    given K x K overlap matrix: 32-box blocks; for a block, the words of the
+    tiles below the diagonal ANDed with the finished blocks' keep words,
+    then 32 chain steps over the diagonal tile's bits j > i."""
+    k = len(alive)
+    nb = (k + 31) // 32
+
+    def word(i, w, lo=0):
+        """Bits t >= lo of 'box 32w + t overlaps box i', t < 32, in range."""
+        return sum(1 << t for t in range(lo, 32)
+                   if 32 * w + t < k and overlapping[i, 32 * w + t])
+
+    keep = []
+    for rb in range(nb):
+        rows = [min(32 * rb + r, k - 1) for r in range(32)]
+        live = 0
+        for lane, i in enumerate(rows):
+            hit = 0
+            for w in range(rb):
+                hit |= word(i, w) & keep[w]
+            if 32 * rb + lane < k and alive[i] and hit == 0:
+                live |= 1 << lane
+        removed = ~live & 0xFFFFFFFF
+        for r, i in enumerate(rows):
+            if not (removed >> r) & 1:
+                removed |= word(i, rb, lo=r + 1)
+        keep.append(~removed & 0xFFFFFFFF)
+    return np.array([(keep[j // 32] >> (j % 32)) & 1 for j in range(k)], bool)
+
+
+@pytest.mark.parametrize("case", _NMS_CASES, ids=[c[0] for c in _NMS_CASES])
+def test_nms_block_sweep_of_the_cuda_kernel_equals_the_row_sweep(case):
+    """The CUDA kernel never computes the tiles above the diagonal and
+    resolves 32 boxes at a time; on the plain version's overlap matrix that
+    order of work gives the plain version's masks, on every shared case."""
+    from human_body_proportion_estimation_tpu_torch.ops.boxes import box_iou
+
+    _, boxes, scores, t, _ = case
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    ref = kernels.nms_sweep(tb, ts, t).numpy()
+    overlapping = (box_iou(tb, tb) > t).numpy()
+    for img in range(boxes.shape[0]):
+        np.testing.assert_array_equal(
+            _block_sweep_replay(overlapping[img], scores[img] > 0), ref[img])
+
+
+def test_nms_shared_cases_cover_what_they_name():
+    """The planted values are where the cases say: NaN and infinite
+    coordinates among live boxes that do get suppressed or kept around them,
+    and a chain whose three boxes lie in three 32-box blocks."""
+    by_name = {c[0]: c for c in _NMS_CASES}
+    _, boxes, scores, t, _ = by_name[
+        "NaN and inf boxes among live ones, t=0.5"]
+    assert np.isnan(boxes).any() and np.isinf(boxes).any()
+    assert np.isnan(scores).sum() == boxes.shape[0]
+    keep = kernels.nms_sweep(torch.from_numpy(boxes),
+                             torch.from_numpy(scores), t).numpy()
+    nan_box = np.isnan(boxes).any(-1) & (scores > 0)
+    assert nan_box.sum() >= 3 * 4 * 3 and keep[nan_box].all()
+    assert not keep[np.isnan(scores)].any()
+    finite = np.isfinite(boxes).all(-1) & (scores > 0)
+    assert keep[finite].any() and not keep[finite].all()
+    # without the NaN rule (NaN dropped by min / max, as C's fmaxf does) the
+    # six-box case would lose boxes 1 and 3
+    _, boxes, scores, t, expected = by_name["NaN and inf boxes, six"]
+    assert expected.tolist() == [[True, True, False, True, True, True]]
+    _, boxes, _, _, expected = by_name["chain across three blocks"]
+    assert {0 // 32, 40 // 32, 80 // 32} == {0, 1, 2}
+    assert expected[0, [0, 40, 80]].tolist() == [True, False, True]
 
 
 def test_cpu_tensors_take_the_plain_version_without_counting():
