@@ -274,15 +274,18 @@ def check_nms(k, dev):
     ms = cuda_ms(sweep16, 200)
     plain_ms = cuda_ms(lambda: k.nms_sweep_plain(boxes, scores, 0.5), 3, 1)
     b, kk = scores.shape
+    # a keep mask reads only the pairs j < i: K (K - 1) / 2 IoUs an image,
+    # 14 operations each
     b_ms, b_by = bound(boxes.numel() * 4 + scores.numel() * 4 + b * kk,
-                       14.0 * b * kk * kk, F32_FLOP_PER_S)
+                       14.0 * b * kk * (kk - 1) / 2, F32_FLOP_PER_S)
     g_ms = graph_ms(sweep16, 100)
     line = (f"nms_sweep [16,128]: eager {ms:.4f} ms, graph replay "
             f"{g_ms:.4f} ms; [1,128]: eager {cuda_ms(sweep1, 200):.4f} ms, "
             f"graph replay {graph_ms(sweep1, 100):.4f} ms")
-    if hasattr(k, "empty_launch"):
-        e16 = graph_ms(lambda: k.empty_launch(16 * k.NMS_CLUSTER), 100)
-        e1 = graph_ms(lambda: k.empty_launch(k.NMS_CLUSTER), 100)
+    if hasattr(k, "nms_launch_shape"):
+        blocks, threads = k.nms_launch_shape()
+        e16 = graph_ms(lambda: k.empty_launch(16 * blocks, threads), 100)
+        e1 = graph_ms(lambda: k.empty_launch(blocks, threads), 100)
         line += ("; an empty kernel of the same launch shape, graph replay: "
                  f"for 16 images {e16:.4f} ms, for 1 image {e1:.4f} ms")
     log(line)
@@ -453,7 +456,8 @@ def time_kernels(k, dev, det_state, only=""):
         ("nms_sweep [16,128] ladder",
          lambda: k.nms_sweep(ladder, scores, 0.5), 200),
     ]
-    if hasattr(k, "empty_launch"):
+    if hasattr(k, "nms_launch_shape"):
+        nms_blocks, nms_threads = k.nms_launch_shape()
         # the launch shapes of this NMS kernel (a cluster of thread blocks of
         # 1024 threads an image) and of its first version (128 threads)
         cases += [
@@ -461,8 +465,8 @@ def time_kernels(k, dev, det_state, only=""):
              lambda blocks=blocks, threads=threads: k.empty_launch(
                  blocks, threads), 200)
             for blocks, threads in (
-                (16 * k.NMS_CLUSTER, k.NMS_THREADS), (16, 128),
-                (k.NMS_CLUSTER, k.NMS_THREADS), (1, 128))]
+                (16 * nms_blocks, nms_threads), (16, 128),
+                (nms_blocks, nms_threads), (1, 128))]
     for name, fn, iters in cases:
         if only not in name:
             continue

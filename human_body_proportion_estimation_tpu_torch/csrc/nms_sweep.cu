@@ -37,10 +37,12 @@
 //   32rb + r against box 32w + t, and one `__ballot_sync` is the row's
 //   32-bit word, so a thread divides 2 or 3 times at K = 128 (10 tiles).
 //   The words go to the shared memory of the cluster's first thread block,
-//   from the others through distributed shared memory: below the diagonal
-//   as they are ("which boxes of block w overlap box i"); a diagonal tile
-//   keeps only the bits j > i ("which later boxes of its own block box i
-//   suppresses"). One cluster barrier ends the phase. The IEEE division
+//   from the others through distributed shared memory (the cluster barrier
+//   that ends the staging says that the first thread block has started
+//   before anyone writes to it): below the diagonal as they are ("which
+//   boxes of block w overlap box i"); a diagonal tile keeps only the bits
+//   j > i ("which later boxes of its own block box i suppresses"). A
+//   second cluster barrier ends the phase. The IEEE division
 //   takes a slow path when its numerator is 0, which it is for most pairs;
 //   0 / union is 0 unless the union is NaN, and is said so without dividing.
 //   Sweep, by warp 0 of the first thread block, block after block: lane t ANDs the words of box
@@ -151,7 +153,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     const uint32_t live = __ballot_sync(kFull, score > 0.0f);
     if (lane == 0) s_live[warp] = live;
   }
-  __syncthreads();
+  // Ends the staging, and says that every thread block of the cluster has
+  // started: only then may one write to another's shared memory.
+  cluster.sync();
 
 #pragma unroll
   for (int rb = 0; rb < NB; ++rb) {
@@ -225,6 +229,12 @@ extern "C" int hbpe_nms_sweep(const void *boxes, const void *scores,
   return launch<kMaxK / 32>((const float *)boxes, (const float *)scores,
                             (uint8_t *)keep, batch, k, thres,
                             (cudaStream_t)stream);
+}
+
+// The sweep's launch shape: thread blocks an image, threads a thread block.
+extern "C" void hbpe_nms_launch_shape(int *blocks_per_image, int *threads) {
+  *blocks_per_image = kCluster;
+  *threads = kThreads;
 }
 
 // A kernel that does nothing: its time is what a launch of that shape alone

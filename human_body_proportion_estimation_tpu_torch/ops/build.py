@@ -118,6 +118,8 @@ def load_library() -> ctypes.CDLL:
     lib.hbpe_head_score_levels.argtypes = [
         p, p, p, p, i, p, p, p, p, i, i, i, p]
     lib.hbpe_empty_launch.argtypes = [i, i, p]
+    lib.hbpe_nms_launch_shape.argtypes = [p, p]
+    lib.hbpe_nms_launch_shape.restype = None
     for fn in (lib.hbpe_decode_heatmaps, lib.hbpe_nms_sweep,
                lib.hbpe_head_score_levels, lib.hbpe_empty_launch):
         fn.restype = ctypes.c_int

@@ -353,15 +353,19 @@ def nms_sweep(
     return keep
 
 
-# launch shape of csrc/nms_sweep.cu: thread blocks an image, threads a block
-NMS_CLUSTER, NMS_THREADS = 4, 1024
+def nms_launch_shape() -> Tuple[int, int]:
+    """(thread blocks an image, threads a thread block) of the `nms_sweep`
+    kernel, as csrc/nms_sweep.cu states them."""
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    _lib().hbpe_nms_launch_shape(ctypes.byref(blocks), ctypes.byref(threads))
+    return blocks.value, threads.value
 
 
-def empty_launch(blocks: int, threads: int = NMS_THREADS) -> None:
-    """Launch a kernel that does nothing, on the current CUDA stream.
-    `empty_launch(NMS_CLUSTER * B)` has the launch shape of `nms_sweep` on B
-    images: timed beside it, it shows how much of the sweep's time is the
-    launch itself. Not counted in `LAUNCHES`."""
+def empty_launch(blocks: int, threads: int) -> None:
+    """Launch a kernel that does nothing, on the current CUDA stream. With
+    `blocks` and `threads` from `nms_launch_shape` it has the launch shape
+    of `nms_sweep`: timed beside it, it shows how much of the sweep's time
+    is the launch itself. Not counted in `LAUNCHES`."""
     err = _lib().hbpe_empty_launch(
         int(blocks), int(threads), torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -345,8 +345,10 @@ def test_nms_plain_on_the_shared_cases_follows_the_jax_package(case):
 
 
 def _block_sweep_replay(overlapping, alive):
-    """The sweep of csrc/nms_sweep.cu on one image, replayed in Python on a
-    given K x K overlap matrix: 32-box blocks; for a block, the words of the
+    """A Python MODEL of the order of work of csrc/nms_sweep.cu on one image
+    (it runs none of the CUDA code; the kernel itself is held against the
+    plain version on the card by chip_smoke.py), on a given K x K overlap
+    matrix: 32-box blocks; for a block, the words of the
     tiles below the diagonal ANDed with the finished blocks' keep words,
     then 32 chain steps over the diagonal tile's bits j > i."""
     k = len(alive)
@@ -377,9 +379,11 @@ def _block_sweep_replay(overlapping, alive):
 
 @pytest.mark.parametrize("case", _NMS_CASES, ids=[c[0] for c in _NMS_CASES])
 def test_nms_block_sweep_of_the_cuda_kernel_equals_the_row_sweep(case):
-    """The CUDA kernel never computes the tiles above the diagonal and
-    resolves 32 boxes at a time; on the plain version's overlap matrix that
-    order of work gives the plain version's masks, on every shared case."""
+    """A check of the algorithm, not of the kernel: the CUDA kernel's design
+    never computes the tiles above the diagonal and resolves 32 boxes at a
+    time, and on the plain version's overlap matrix a Python model of that
+    order of work gives the plain version's masks, on every shared case. No
+    edit to the .cu can fail this; it documents why the design is sound."""
     from human_body_proportion_estimation_tpu_torch.ops.boxes import box_iou
 
     _, boxes, scores, t, _ = case
