@@ -5,6 +5,9 @@
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --ptxas         # also print nvcc -Xptxas -v
     python3 chip_smoke.py --profile       # + torch.profiler of B=16 serving
+    python3 chip_smoke.py --edge-sweep    # + the serving edge's load under
+                                          # other settings (engine, batches
+                                          # in flight, client threads)
     python3 chip_smoke.py --time-kernels [--repo DIR] [--kernel NAME]
                                           # kernel times only (all, or those
                                           # whose name contains NAME), of this
@@ -43,6 +46,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      host and device ms (the pipeline's record_function ranges), the
      device busy share, and the kernel table in
      chiprun_out/port_profile_b16.txt.
+  A. serving edge, on the same pipeline: `prewarm_serving` (buckets 1-16),
+     then the port's `ServingApp` (native C++ batcher, two batches in
+     flight) behind `create_server` on 127.0.0.1:0 in a thread. The 3
+     scenes POSTed one at a time, then 48 requests from 16 client threads
+     (each scene 16 times, height 150 + i) with the launch counters set to
+     0 just before and read just after: every answer against its scene's
+     golden scaled by height / 175 (same segment visibility, max |dcm| <=
+     6.0; the mean <= 1.0 over each group of answers); /metrics must show
+     the 48 requests, no failure, a mean batch above 1, every stage, and
+     each kernel launched once a batch (launches == the growth of
+     batches_total). /health must name the
+     card, both weight slots "synthetic-certified", prewarmed, and the
+     card's memory. A 12-frame MJPG clip of the scenes goes to the video
+     route (frame_stride 2) and the NDJSON stream route: frames 0, 2, ..,
+     10 in order, each against its scene's golden.
+  B. CLI: `python3 -m human_body_proportion_estimation_tpu_torch.cli.
+     detect_pose` on a directory of the 3 scenes, in a subprocess: exit 0,
+     3 frame_*.jpg files, every printed person's cm against the goldens.
   4. report: a `kernels` JSON line, the card's name and power limit, and
      the result line {"ok": true, "device": {...}} last.
 
@@ -52,6 +73,7 @@ Imports nothing of JAX; builds into the package's gitignored `build/`.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -66,6 +88,7 @@ BF16_FLOP_PER_S = 989e12       # dense tensor-core bf16
 F32_FLOP_PER_S = 67e12         # CUDA-core f32
 HEAD_TOL = (1e-3, 1e-3)        # (abs, rel), kernel vs plain head-score
 GOLDEN_MEAN_CM, GOLDEN_MAX_CM = 1.0, 6.0
+FILE_ROUTE = "/body_proportion_length_estimation_file"
 
 
 def log(msg: str) -> None:
@@ -516,7 +539,7 @@ def profile_serving(pipe, images, height, thres, iters=3):
                                            row_limit=60))
 
 
-def run_main_path(k, det_state, pose_state, dev, profile=False):
+def run_main_path(k, dev, profile=False):
     import numpy as np
     import torch
 
@@ -533,8 +556,9 @@ def run_main_path(k, det_state, pose_state, dev, profile=False):
             scene_bytes.append(fh.read())
     height, thres = golden["person_height_cm"], golden["det_threshold"]
 
-    pipe = InferencePipeline(det_state=det_state, pose_state=pose_state,
-                             device=dev)
+    # the committed certified checkpoint, loaded by the pipeline itself (so
+    # that /health labels it as the JAX server does)
+    pipe = InferencePipeline(device=dev)
     images = [decode_image_bytes(bts) for bts in scene_bytes]
     batch16 = [images[i % len(images)] for i in range(16)]
 
@@ -589,7 +613,339 @@ def run_main_path(k, det_state, pose_state, dev, profile=False):
         " GiB")
     if profile:
         profile_serving(pipe, batch16, height, thres)
-    return launches
+    return launches, pipe, golden, scene_bytes
+
+
+# --------------------------------------------------------------------- #
+# phases A and B: the serving edge and the CLI
+
+
+def check_answer(cm, golden, scene, height, what, nth=0):
+    """One person's `body_proportion_lengths_(cm)` dict against the `nth`
+    valid person of its scene's golden (the first, which the server
+    answers, by default) scaled by height / 175: the same visible
+    segments, and max |dcm| <= 6.0. Returns the |dcm| list, whose mean
+    `check_mean` holds to 1.0 over a group of answers, as phase 3 does
+    over its 3 scenes (one answer's 11 segments alone are too few: bf16
+    rounding that differs between batch sizes moves a single scene's
+    mean by ~1 cm)."""
+    import numpy as np
+
+    from human_body_proportion_estimation_tpu_torch.ops.proportions import (
+        SEGMENT_NAMES,
+    )
+
+    ref = np.asarray(golden["packed"], np.float32)[scene]
+    slots = np.flatnonzero(ref[:, 0] > 0.5)
+    assert len(slots) > nth, f"{what}: the golden has no such person"
+    slot = int(slots[nth])
+    scale = height / golden["person_height_cm"]
+    assert list(cm) == SEGMENT_NAMES, f"{what}: {cm}"
+    vis_got = [not isinstance(cm[n], str) for n in SEGMENT_NAMES]
+    vis_ref = (ref[slot, 12:23] > 0.5).tolist()
+    assert vis_got == vis_ref, f"{what}: visibility {vis_got} vs {vis_ref}"
+    d = [abs(cm[n] - float(ref[slot, 1 + i]) * scale)
+         for i, n in enumerate(SEGMENT_NAMES) if vis_ref[i]]
+    assert d and max(d) <= GOLDEN_MAX_CM, f"{what}: |dcm| {d}"
+    return d
+
+
+def check_mean(d_all, what):
+    """Phase 3's mean rule over a group of answers; returns (mean, max)."""
+    mean = sum(d_all) / len(d_all)
+    assert mean <= GOLDEN_MEAN_CM, f"{what}: mean |dcm| {mean}"
+    return mean, max(d_all)
+
+
+def multipart(fields):
+    import uuid
+
+    boundary = uuid.uuid4().hex
+    body = b""
+    for name, value in fields.items():
+        data, filename = value if isinstance(value, tuple) else (
+            str(value).encode(), None)
+        disp = f'Content-Disposition: form-data; name="{name}"'
+        if filename:
+            disp += f'; filename="{filename}"'
+        body += (f"--{boundary}\r\n{disp}\r\n\r\n".encode() + data
+                 + b"\r\n")
+    body += f"--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def http_request(port, method, path, fields=None):
+    """(status, body bytes); `fields` become a multipart form."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    body, ctype = multipart(fields) if fields else (None, None)
+    conn.request(method, path, body=body,
+                 headers={"Content-Type": ctype} if ctype else {})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    return resp.status, data
+
+
+def http_json(port, method, path, fields=None):
+    status, data = http_request(port, method, path, fields)
+    assert status == 200, (path, status, data[:200])
+    return json.loads(data)
+
+
+def mjpg_clip(scene_bytes, n_frames=12):
+    """The scenes in turn as an MJPG clip (cv2.VideoWriter), as bytes."""
+    import tempfile
+
+    import cv2
+    import numpy as np
+
+    frames = [cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR)
+              for b in scene_bytes]
+    h, w = frames[0].shape[:2]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "clip.avi")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 5.0,
+                                 (w, h))
+        assert writer.isOpened(), "cv2 cannot write MJPG"
+        for i in range(n_frames):
+            writer.write(frames[i % len(frames)])
+        writer.release()
+        with open(path, "rb") as fh:
+            return fh.read()
+
+
+@contextlib.contextmanager
+def served(app):
+    """`app` behind `create_server` on 127.0.0.1:0 in a thread: yields the
+    port; shuts server, batcher and thread down on the way out."""
+    import threading
+
+    from human_body_proportion_estimation_tpu_torch.serve.server import (
+        create_server,
+    )
+
+    server = create_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server.server_address[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        app.shutdown()
+        thread.join(timeout=10)
+
+
+def post_load(port, scene_bytes, heights, thres, clients):
+    """One file-route request per height (scene i % 3 for the i-th), sent
+    from `clients` threads: (answers in request order, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        return http_json(port, "POST", FILE_ROUTE, {
+            "file": (scene_bytes[i % len(scene_bytes)], "scene.png"),
+            "person_height_in_cm": heights[i], "threshold": thres})
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        answers = list(pool.map(one, range(len(heights))))
+    return answers, time.perf_counter() - t0
+
+
+def load_summary(m0, m1, wall, requests):
+    """The figures of one load from /metrics before (m0) and after (m1)."""
+    batches = m1["batches_total"] - m0["batches_total"]
+    return dict(
+        requests=requests, wall_s=wall, requests_per_s=requests / wall,
+        batches=batches, mean_batch_size_of_the_load=requests / batches,
+        metrics_mean_batch_size=m1["mean_batch_size"],
+        latency_ms_p50=m1["latency_ms_p50"],
+        latency_ms_p95=m1["latency_ms_p95"],
+        queue_wait_ms_p95=m1["queue_wait_ms_p95"],
+        stages_mean_ms={key: v["mean_ms"]
+                        for key, v in m1["stages"].items()},
+    )
+
+
+def run_serving_edge(k, pipe, golden, scene_bytes):
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        prewarm_serving,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.server import (
+        ServingApp,
+    )
+
+    height, thres = golden["person_height_cm"], golden["det_threshold"]
+    n_scenes = len(scene_bytes)
+    warmed = prewarm_serving(pipe)
+    assert warmed == [1, 2, 4, 8, 16], warmed
+    with served(ServingApp(pipe)) as port:
+        m0 = http_json(port, "GET", "/metrics")
+        assert m0["engine"] == "native", m0
+        d_all = []
+        for i, bts in enumerate(scene_bytes):
+            r = http_json(port, "POST", FILE_ROUTE, {
+                "file": (bts, f"scene_{i}.png"),
+                "person_height_in_cm": int(height), "threshold": thres})
+            assert r["code"] == "success", r
+            d_all += check_answer(r["body_proportion_lengths_(cm)"], golden,
+                                  i, height, f"single scene {i}")
+        log("serving edge: 3 single requests agree with the goldens, mean "
+            "|dcm| %.4f, max %.4f" % check_mean(d_all, "single requests"))
+
+        # 48 requests from 16 client threads, each with its own height
+        heights = [150 + i for i in range(48)]
+        m1 = http_json(port, "GET", "/metrics")
+        k.reset_launch_counts()
+        answers, wall = post_load(port, scene_bytes, heights, thres, 16)
+        launches = k.launch_counts()
+        m2 = http_json(port, "GET", "/metrics")
+        d_all = []
+        for i, r in enumerate(answers):
+            assert r["code"] == "success", r
+            d_all += check_answer(r["body_proportion_lengths_(cm)"], golden,
+                                  i % n_scenes, heights[i],
+                                  f"concurrent request {i}")
+        edge = load_summary(m1, m2, wall, 48)
+        assert m2["requests_total"] - m1["requests_total"] == 48, m2
+        assert m2["failures_total"] == 0, m2
+        assert m2["mean_batch_size"] > 1, m2
+        assert edge["mean_batch_size_of_the_load"] > 1, edge
+        assert launches == {name: edge["batches"] for name in launches}, \
+            (launches, edge["batches"])
+        for key in ("request_decode", "host_prepare", "device_upload",
+                    "device_compute_readback"):
+            assert m2["stages"][key]["count"] >= 1, (key, m2["stages"])
+        edge.update(client_threads=16, launches=launches)
+        edge["golden_mean_abs_cm"], edge["golden_max_abs_cm"] = check_mean(
+            d_all, "48 concurrent requests")
+        log(f"serving edge (native engine, 2 batches in flight): "
+            f"{json.dumps(edge)}")
+        log(f"serving edge card: {card_line()}")
+
+        health = http_json(port, "GET", "/health")
+        log(f"/health: {json.dumps(health)}")
+        assert "H100" in health["devices"][0], health
+        assert health["weights"] == {"detector": "synthetic-certified",
+                                     "pose": "synthetic-certified"}, health
+        assert health["prewarmed"] is True, health
+        assert health["hbm_bytes_in_use"] and health["hbm_bytes_limit"], \
+            health
+
+        # video: the aggregate route and the NDJSON stream, stride 2
+        clip = mjpg_clip(scene_bytes)
+        form = {"file": (clip, "clip.avi"), "frame_stride": 2,
+                "person_height_in_cm": int(height), "threshold": thres}
+        video = http_json(port, "POST",
+                          "/body_proportion_length_estimation_video", form)
+        assert video["code"] == "success", video
+        assert [f["frame"] for f in video["frames"]] == list(range(0, 12, 2))
+        status, raw = http_request(
+            port, "POST", "/body_proportion_length_estimation_video_stream",
+            form)
+        assert status == 200, raw[:200]
+        lines = [json.loads(x) for x in raw.splitlines()]
+        header, frames, summary = lines[0], lines[1:-1], lines[-1]
+        assert header == {"code": "success", "fps": video["fps"],
+                          "frame_stride": 2}, header
+        assert [f["frame"] for f in frames] == list(range(0, 12, 2))
+        assert summary["code"] == "success" and "frames" not in summary
+        assert summary["num_frames_processed"] == 6, summary
+        d_all = []
+        for f in video["frames"] + frames:
+            d_all += check_answer(f["body_proportion_lengths_(cm)"], golden,
+                                  f["frame"] % n_scenes, height,
+                                  f"video frame {f['frame']}")
+        log("video routes: frames 0..10 step 2 in order on both; against "
+            "the goldens mean |dcm| %.4f, max %.4f (MJPG frames)"
+            % check_mean(d_all, "video frames"))
+    return edge
+
+
+def edge_sweep(pipe, golden, scene_bytes):
+    """--edge-sweep: phase A's load of 48 requests again under other
+    settings, each on a fresh `ServingApp` (so /metrics covers that load
+    alone): the native core with 2 or 1 batches in flight, the Python
+    batcher (one batch at a time), and 16, 4 or 1 client threads. The
+    first setting comes again last, to show the drift inside the call."""
+    import dataclasses
+
+    from human_body_proportion_estimation_tpu_torch.serve.native import (
+        NativeBatcher,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.server import (
+        ServingApp,
+    )
+
+    serve_cfg = pipe.config.serve
+    heights = [150 + i for i in range(48)]
+    for engine, depth, clients in (
+            ("native", 2, 16), ("native", 1, 16), ("python", 1, 16),
+            ("native", 2, 4), ("native", 2, 1), ("native", 1, 1),
+            ("native", 2, 16)):
+        app = ServingApp(pipe, dataclasses.replace(
+            pipe.config, serve=dataclasses.replace(
+                serve_cfg, native_batcher=engine == "native")))
+        if app.native and depth != 2:
+            app.batcher.shutdown()
+            app.batcher = NativeBatcher(
+                app._run_batch, max_batch=serve_cfg.max_batch,
+                batch_timeout_ms=serve_cfg.batch_timeout_ms,
+                queue_depth=serve_cfg.queue_depth, pipeline_depth=depth)
+        with served(app) as port:
+            m0 = http_json(port, "GET", "/metrics")
+            answers, wall = post_load(port, scene_bytes, heights,
+                                      golden["det_threshold"], clients)
+            m1 = http_json(port, "GET", "/metrics")
+        assert all(r["code"] == "success" for r in answers)
+        row = dict(engine=engine, batches_in_flight=depth,
+                   client_threads=clients,
+                   **load_summary(m0, m1, wall, len(heights)))
+        log(f"edge sweep: {json.dumps(row)}")
+
+
+def run_cli(golden, repo):
+    """The CLI in a subprocess on a directory of the scenes."""
+    import ast
+    import re
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    height, thres = golden["person_height_cm"], golden["det_threshold"]
+    with tempfile.TemporaryDirectory() as tmp:
+        media, out = os.path.join(tmp, "media"), os.path.join(tmp, "out")
+        os.makedirs(media)
+        for name in golden["scenes"]:
+            shutil.copy(os.path.join(DATA, name), media)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "human_body_proportion_estimation_tpu_torch.cli.detect_pose",
+             "-i", media, "-o", out, "-t", str(thres), "-p", str(height)],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        saved = sorted(os.listdir(os.path.join(out, "tpu_pdet_pose")))
+    frames = [f for f in saved if f.startswith("frame_")]
+    assert len(frames) == 3, saved
+    dicts = [ast.literal_eval(m) for m in
+             re.findall(r"\{'[^{}]*\}", proc.stdout)]
+    valid = np.asarray(golden["packed"])[..., 0] > 0.5
+    # the printed list holds, image after image, one dict per valid slot
+    persons = [(s, nth) for s in range(valid.shape[0])
+               for nth in range(int(valid[s].sum()))]
+    assert len(dicts) == len(persons), (len(dicts), valid)
+    d_all = []
+    for cm, (scene, nth) in zip(dicts, persons):
+        d_all += check_answer(cm, golden, scene, height,
+                              f"cli scene {scene} person {nth}", nth)
+    log(f"cli: exit 0 in {wall:.1f} s, {len(saved)} files ({frames}), "
+        f"{len(dicts)} persons printed, against the goldens: mean |dcm| "
+        "%.4f, max %.4f" % check_mean(d_all, "cli"))
 
 
 def main() -> int:
@@ -597,6 +953,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--ptxas", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--edge-sweep", action="store_true",
+                    help="after phase B, the serving-edge load under other "
+                         "settings (batches in flight, engine, clients)")
     ap.add_argument("--time-kernels", action="store_true")
     ap.add_argument("--kernel", default="",
                     help="with --time-kernels: only the cases named so")
@@ -625,7 +984,7 @@ def main() -> int:
     log(f"build: {build.timed_build(verbose=args.ptxas):.1f} s "
         f"({len(build.sources())} sources)")
 
-    det_state, pose_state = load_certified_states(os.path.join(
+    det_state, _ = load_certified_states(os.path.join(
         REPO, "human_body_proportion_estimation_tpu", "checkpoints",
         "certified_lite4_w32.npz"))
     if args.time_kernels:
@@ -640,8 +999,12 @@ def main() -> int:
 
     launches = {r["name"]: None for r in results}
     if not args.kernels_only:
-        launches = run_main_path(k, det_state, pose_state, dev,
-                                 profile=args.profile)
+        launches, pipe, golden, scene_bytes = run_main_path(
+            k, dev, profile=args.profile)
+        run_serving_edge(k, pipe, golden, scene_bytes)
+        run_cli(golden, os.path.abspath(args.repo))
+        if args.edge_sweep:
+            edge_sweep(pipe, golden, scene_bytes)
     sources = {"decode_heatmaps": "decode_heatmaps.cu",
                "head_score": "head_score.cu", "nms_sweep": "nms_sweep.cu"}
     replaces = {

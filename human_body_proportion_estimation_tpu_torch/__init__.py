@@ -7,12 +7,15 @@ kernels here (`csrc/`, bound in `ops/kernels.py`); everything else is plain
 PyTorch.
 
 Layout (mirrors the JAX package):
-    utils/      config tree
+    utils/      config tree, JSON logging, stage timer, media IO, drawing
     ops/        boxes, NMS, crop, heatmap decode, proportions, and the
                 CUDA kernel wrappers
     models/     anchors, EfficientNet-Lite / EfficientDet, HRNet, weight
                 conversion
     pipeline/   the fused forward, the detector backend, host orchestration
+    serve/      the HTTP edge, its batchers (Python, and the C++ core of
+                native/ built at first use), tracing, OpenAPI document
+    cli/        the main-path CLI (detect_pose)
     csrc/       CUDA C++ sources (built at first use, see ops/build.py)
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; there is

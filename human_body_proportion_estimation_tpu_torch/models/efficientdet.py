@@ -24,6 +24,7 @@ Traps handled here:
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import List, Tuple
 
 import torch
@@ -158,6 +159,10 @@ class HeadNet(nn.Module):
         return self.predict_dw(x)
 
 
+# guards `EfficientDet._class_predict_cache` (see `_class_predict_params`)
+_CLASS_PREDICT_LOCK = threading.Lock()
+
+
 class EfficientDet(nn.Module):
     """[B, H, W, 3] uint8/float image -> (best_logit [B, N],
     person_logit [B, N], box_regs [B, N, 4])."""
@@ -216,17 +221,19 @@ class EfficientDet(nn.Module):
         """The class head's shared predict conv as the head-score kernel
         takes it: weight [A*C, F] bf16 and bias f32. Made once and kept
         until the parameters change, so the kernel wrapper's cache of
-        packed weights sees the same tensors on every forward."""
+        packed weights sees the same tensors on every forward, from every
+        thread (the serving edge runs two forwards at once)."""
         conv = self.class_net.predict_pw
         w, bias = conv.weight, conv.bias
         key = (w.data_ptr(), w._version, bias.data_ptr(), bias._version)
-        if self._class_predict_cache[0] != key:
-            self._class_predict_cache = (
-                key,
-                w.detach().reshape(w.shape[0], -1).to(torch.bfloat16),
-                bias.detach().float(),
-            )
-        return self._class_predict_cache[1:]
+        with _CLASS_PREDICT_LOCK:
+            if self._class_predict_cache[0] != key:
+                self._class_predict_cache = (
+                    key,
+                    w.detach().reshape(w.shape[0], -1).to(torch.bfloat16),
+                    bias.detach().float(),
+                )
+            return self._class_predict_cache[1:]
 
 
 def person_slots(

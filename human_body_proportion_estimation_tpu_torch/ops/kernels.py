@@ -15,11 +15,16 @@ to the plain version (the CPU tests), a CUDA tensor launches the kernel or
 raises. There is no fallback from a failed launch to the plain version.
 Every launch adds one to `LAUNCHES[name]`, so a run can show that it went
 through the kernels (`reset_launch_counts` / `launch_counts`).
+
+The serving edge runs two batches at once on two threads, so the first
+load of the kernel library, the cache of packed head weights and the
+launch counters each take a lock.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import OrderedDict
 from typing import Dict, Sequence, Tuple
 
@@ -33,15 +38,18 @@ from human_body_proportion_estimation_tpu_torch.ops import (
 LAUNCHES: Dict[str, int] = {
     "decode_heatmaps": 0, "head_score": 0, "nms_sweep": 0,
 }
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(LAUNCHES)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -68,21 +76,30 @@ def _launch(name: str, fn, *args) -> None:
     err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[name] += 1
+    _count(name)
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 _LIB = None
+_LIB_LOCK = threading.Lock()
 
 
 def _lib():
-    """The kernel library, built and loaded at the first launch."""
+    """The kernel library, built and loaded at the first launch (once, when
+    two threads launch their first kernel together)."""
     global _LIB
     if _LIB is None:
         from human_body_proportion_estimation_tpu_torch.ops.build import (
             load_library,
         )
 
-        _LIB = load_library()
+        with _LIB_LOCK:
+            if _LIB is None:
+                _LIB = load_library()
     return _LIB
 
 
@@ -216,6 +233,7 @@ def pack_head_weights(
 # (tensors made under `torch.inference_mode` have none).
 _PACKED: "OrderedDict[tuple, tuple]" = OrderedDict()
 _PACKED_MAX = 4
+_PACKED_LOCK = threading.Lock()
 
 
 def _version(t: torch.Tensor) -> int:
@@ -225,13 +243,14 @@ def _version(t: torch.Tensor) -> int:
 def _packed_head_weights(weight, bias, a, c, person0):
     key = (weight.data_ptr(), _version(weight), bias.data_ptr(),
            _version(bias), a, c, person0)
-    hit = _PACKED.get(key)
-    if hit is None:
-        hit = (weight, bias,
-               *pack_head_weights(weight, bias, a, c, person0))
-        _PACKED[key] = hit
-        while len(_PACKED) > _PACKED_MAX:
-            _PACKED.popitem(last=False)
+    with _PACKED_LOCK:
+        hit = _PACKED.get(key)
+        if hit is None:
+            hit = (weight, bias,
+                   *pack_head_weights(weight, bias, a, c, person0))
+            _PACKED[key] = hit
+            while len(_PACKED) > _PACKED_MAX:
+                _PACKED.popitem(last=False)
     return hit[2], hit[3]
 
 

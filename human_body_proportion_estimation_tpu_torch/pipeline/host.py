@@ -3,14 +3,16 @@ package's `pipeline/host.py`): bytes -> RGB decode, resize to the detector
 input, batch padding to power-of-two buckets, and shaping outputs into the
 reference's response structures (`format_image_result`, `infer_bytes`).
 
-`InferencePipeline` is the entry point the HTTP file route calls
-(`infer_bytes`, `infer_serving`). It runs on `device="cuda"` unless the
-caller asks for the CPU; nothing moves to the CPU by itself when CUDA is
-missing.
+`InferencePipeline` is the entry point the HTTP edge calls
+(`infer_serving` through its batcher, `infer_bytes`). It runs on
+`device="cuda"` unless the caller asks for the CPU; nothing moves to the
+CPU by itself when CUDA is missing. It is safe to call from two threads at
+once (the native batcher keeps two batches in flight).
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
@@ -55,6 +57,16 @@ def decode_image_bytes(data: bytes) -> np.ndarray:
     if img.mode != "RGB":
         img = img.convert("RGB")
     return np.asarray(img)
+
+
+def load_image_path(path: str) -> np.ndarray:
+    """Image file -> RGB uint8 HWC (cv2 BGR decode + flip)."""
+    import cv2
+
+    img = cv2.imread(path)
+    if img is None:
+        raise ValueError(f"could not decode image: {path}")
+    return img[..., ::-1].copy()
 
 
 def resize_for_detector(img: np.ndarray, width: int,
@@ -113,6 +125,29 @@ def prepare_batch(cfg: PipelineConfig, images_rgb, person_heights,
     return batch, thresholds, heights, orig_hw, n
 
 
+def prewarm_serving(pipeline) -> list:
+    """Run the serving forward once at every power-of-two batch bucket up
+    to `serve.max_batch`, so that the first real request at a bucket pays
+    no first-call cost (the kernel library build and load, cuDNN's choice
+    of algorithms for the new shapes, the packing of the head weights).
+    The analog of Triton marking a model READY only after load +
+    initialize (reference README.md:56-64). Returns the image counts warmed
+    and sets `pipeline.prewarmed` for /health."""
+    max_batch = pipeline.config.serve.max_batch
+    img = np.zeros((64, 48, 3), np.uint8)
+    warmed = []
+    n = 1
+    while True:
+        pipeline.infer_serving([img] * n, person_heights=175.0,
+                               det_threshold=0.99)
+        warmed.append(n)
+        if n >= max_batch:
+            break
+        n = min(n * 2, max_batch)
+    pipeline.prewarmed = True
+    return warmed
+
+
 def load_certified_states(path: Optional[str] = None):
     """(det_state, pose_state) port `state_dict`s from a compact `.npz`
     (default: the committed certified Lite4 + W32 checkpoint)."""
@@ -127,7 +162,16 @@ class InferencePipeline:
     `det_state` / `pose_state`: port `state_dict`s (`load_certified_states`,
     or `models.weights.flax_to_state_dict` of flax variables). When either
     is None, both come from the committed certified checkpoint, which only
-    fits the default (full-width) configs.
+    fits the default (full-width) configs; `weights_origin` (what /health
+    reports) then says "synthetic-certified" for both slots, as the JAX
+    server labels that checkpoint, and "real" for state dicts passed in.
+    There is no random-init path.
+
+    `stages`: an optional `utils.profiling.StageTimer` (the serving edge
+    attaches one) that `infer_serving` reports its stages to:
+    `host_prepare`, `device_upload` (closed once the copies have finished
+    on the stream) and `device_compute_readback` (closed when the result
+    is on the host), the stage names of the JAX package.
     """
 
     def __init__(
@@ -149,8 +193,13 @@ class InferencePipeline:
             # computes them in full f32.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        origin = "real"
         if det_state is None or pose_state is None:
             det_state, pose_state = load_certified_states()
+            origin = "synthetic-certified"
+        self.weights_origin = {"detector": origin, "pose": origin}
+        self.stages = None
+        self.prewarmed = False
 
         detector = EfficientDet(
             det_config, dtype=dtype,
@@ -165,12 +214,20 @@ class InferencePipeline:
         self.pose = pose
         self.fused = FusedPipeline(cfg, self.backend, pose)
 
+    def _stage(self, name: str):
+        if self.stages is None:
+            return contextlib.nullcontext()
+        return self.stages.stage(name)
+
     def _prepare(self, images_rgb, person_heights, det_threshold):
-        b = _pad_batch(len(images_rgb), self.config.serve.max_batch)
-        batch, thresholds, heights, orig_hw, n = prepare_batch(
-            self.config, images_rgb, person_heights, det_threshold, b)
-        args = [torch.from_numpy(a).to(self.device)
-                for a in (batch, thresholds, heights, orig_hw)]
+        with self._stage("host_prepare"):
+            b = _pad_batch(len(images_rgb), self.config.serve.max_batch)
+            *arrays, n = prepare_batch(
+                self.config, images_rgb, person_heights, det_threshold, b)
+        with self._stage("device_upload"):
+            args = [torch.from_numpy(a).to(self.device) for a in arrays]
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
         return args, n
 
     def infer_serving(
@@ -182,8 +239,9 @@ class InferencePipeline:
         """Lean serving path: one packed [n, P, 23] array
         (valid | lengths_cm x11 | seg_visible x11)."""
         args, n = self._prepare(images_rgb, person_heights, det_threshold)
-        packed = self.fused.forward_serving(*args)
-        return packed.cpu().numpy()[:n]
+        with self._stage("device_compute_readback"):
+            packed = self.fused.forward_serving(*args).cpu().numpy()
+        return packed[:n]
 
     def infer_images(
         self,

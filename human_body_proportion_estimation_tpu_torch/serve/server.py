@@ -1,0 +1,672 @@
+"""HTTP serving edge of the port, self-contained on the stdlib: the JAX
+package's `serve/server.py` over the port's `InferencePipeline` on the GPU.
+
+Route/response parity with `uvicorn_server/server.py` and the JAX server
+(same status codes, JSON shapes and messages):
+  POST /body_proportion_length_estimation_file
+      multipart form: `file` (image), `person_height_in_cm` (int, default
+      175), `threshold` (float, default 0.70), optional `back_url`
+      -> {"code", "msg", "body_proportion_lengths_(cm)"}; any exception
+      returns the "failed" JSON, never a 500; a full queue returns 503.
+  POST /body_proportion_length_estimation_video[_stream]
+      per-frame person-0 results + a median summary (the _stream variant
+      as chunked NDJSON: header line, frame lines in order, summary last).
+  GET  /, /health, /metrics, /docs, /openapi.json, /v2, /v2/health/live,
+       /v2/health/ready; GET and POST /v2/logging, /v2/trace/setting.
+
+Not served yet: the routes backed by the model registry (`/v2/models*`,
+`/v2/repository/*`, `/v2/models/*/infer`) answer the handler's own
+404 {"detail": "Not Found"} until the registry is ported (ROADMAP.md item
+9), and there is no gRPC endpoint.
+
+Architecture: request threads decode bytes, submit decoded images to the
+batcher (the C++ `NativeBatcher` with two batches in flight, or the Python
+`DynamicBatcher` if the native core cannot be built), which coalesces them
+into `infer_serving` calls on the card. `back_url` POSTs the response
+fire-and-log with (3, 100) timeouts, as `ModelProcessTask.run` does
+(server.py:69-82).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import queue
+import traceback
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, List
+
+import numpy as np
+
+from human_body_proportion_estimation_tpu_torch.ops import (
+    proportions as prop_ops,
+)
+from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+    InferencePipeline,
+    decode_image_bytes,
+)
+from human_body_proportion_estimation_tpu_torch.serve import tracing
+from human_body_proportion_estimation_tpu_torch.serve.batching import (
+    DynamicBatcher,
+    Metrics,
+)
+from human_body_proportion_estimation_tpu_torch.serve.http import (
+    parse_multipart,
+)
+from human_body_proportion_estimation_tpu_torch.serve.openapi import (
+    build_schema,
+)
+from human_body_proportion_estimation_tpu_torch.utils import (
+    logging as hbpe_logging,
+)
+from human_body_proportion_estimation_tpu_torch.utils.config import (
+    PipelineConfig,
+)
+from human_body_proportion_estimation_tpu_torch.utils.profiling import (
+    StageTimer,
+)
+
+log = hbpe_logging.get_logger("serve")
+
+FAIL_MSG = (
+    "Failed to run inference on image. Please use an image with one fully "
+    "visible human."
+)
+WELCOME = {
+    "Welcome to Human Body Proportion Estimation Web Service":
+        "Please visit /docs"
+}
+# the KServe-v2 extensions this server implements so far (the JAX server
+# also lists the registry-backed ones)
+V2_EXTENSIONS = ["health", "logging", "trace"]
+
+# /docs: the interactive Swagger-UI page FastAPI auto-serves in the
+# reference (uvicorn_server/server.py:122-124 points users here): a tiny
+# HTML shell pulling the swagger-ui bundle from the public CDN and
+# rendering /openapi.json, as FastAPI's get_swagger_ui_html does.
+_SWAGGER_UI_HTML = """<!DOCTYPE html>
+<html>
+<head>
+  <meta charset="utf-8"/>
+  <title>Human Body Proportion Estimation - Swagger UI</title>
+  <link rel="stylesheet"
+        href="https://cdn.jsdelivr.net/npm/swagger-ui-dist@5/swagger-ui.css"/>
+</head>
+<body>
+  <div id="swagger-ui"></div>
+  <script src="https://cdn.jsdelivr.net/npm/swagger-ui-dist@5/swagger-ui-bundle.js"></script>
+  <script>
+    window.onload = () => {
+      window.ui = SwaggerUIBundle({
+        url: "/openapi.json",
+        dom_id: "#swagger-ui",
+        presets: [SwaggerUIBundle.presets.apis],
+        layout: "BaseLayout",
+      });
+    };
+  </script>
+</body>
+</html>
+"""
+
+
+def _form_fields(form, defaults: Dict[str, Any]) -> List[Any]:
+    """The named form fields, each converted to its default's type (text
+    is decoded), or the default where the field is absent. A field that
+    does not convert raises ValueError (the failed JSON)."""
+    out = []
+    for k, d in defaults.items():
+        if k not in form:
+            out.append(d)
+        elif isinstance(d, str):
+            out.append(form[k].data.decode())
+        else:
+            out.append(type(d)(form[k].data))
+    return out
+
+
+class ServingApp:
+    """Pipeline + batcher + metrics; handler classes bind to one instance."""
+
+    # frames submitted to the batcher per wave: bounds decoded-frame memory
+    # and one upload's share of the batcher queue
+    VIDEO_CHUNK = 64
+    # default frame cap of the AGGREGATE video route (one minute at 30 fps):
+    # its response holds every frame's dict; max_frames=0 opts out, and the
+    # _stream route has no cap (it never buffers)
+    DEFAULT_MAX_VIDEO_FRAMES = 1800
+
+    def __init__(self, pipeline: InferencePipeline,
+                 config: PipelineConfig | None = None):
+        self.pipeline = pipeline
+        self.config = config or pipeline.config
+        self.metrics = Metrics()
+        # per-stage latency split for /metrics: request decode (handler
+        # threads), then host prepare, device upload and device compute +
+        # readback (InferencePipeline.infer_serving)
+        self.stages = StageTimer()
+        pipeline.stages = self.stages
+        serve_cfg = self.config.serve
+        self.native = False
+        if serve_cfg.native_batcher:
+            try:
+                from human_body_proportion_estimation_tpu_torch.serve.native import (  # noqa: E501
+                    NativeBatcher,
+                )
+
+                self.batcher = NativeBatcher(
+                    self._run_batch,
+                    max_batch=serve_cfg.max_batch,
+                    batch_timeout_ms=serve_cfg.batch_timeout_ms,
+                    queue_depth=serve_cfg.queue_depth,
+                )
+                self.native = True
+            except Exception as e:  # noqa: BLE001 — toolchain missing
+                log.warning("native_core_unavailable", error=str(e))
+        if not self.native:
+            self.batcher = DynamicBatcher(
+                self._run_batch,
+                max_batch=serve_cfg.max_batch,
+                batch_timeout_ms=serve_cfg.batch_timeout_ms,
+                queue_depth=serve_cfg.queue_depth,
+                metrics=self.metrics,
+            )
+
+    def metrics_snapshot(self) -> Dict[str, Any]:
+        stages = {"stages": self.stages.snapshot()}
+        if self.native:
+            m = self.batcher.metrics_json()
+            # the key set of the Python engine: runner exceptions are
+            # failures, back-pressure rejections stay under "rejected"
+            m["requests_total"] = m.get("completed", 0)
+            m["failures_total"] = m.get("failed", 0)
+            m["batches_total"] = m.get("batches", 0)
+            return {"engine": "native", **m, **stages}
+        return {"engine": "python", **self.metrics.snapshot(), **stages}
+
+    def health(self) -> Dict[str, Any]:
+        """/health: the JAX server's keys, with the CUDA devices' names and
+        the card's memory (None for a CPU pipeline, as JAX reports for the
+        CPU)."""
+        import torch
+
+        dev = self.pipeline.device
+        payload: Dict[str, Any] = {"status": "ok", "devices": [str(dev)]}
+        in_use = limit = None
+        if dev.type == "cuda":
+            payload["devices"] = [torch.cuda.get_device_name(i)
+                                  for i in range(torch.cuda.device_count())]
+            in_use = torch.cuda.memory_allocated(dev)
+            limit = torch.cuda.mem_get_info(dev)[1]
+        payload.update(
+            # real|synthetic-certified per model slot
+            weights=self.pipeline.weights_origin,
+            # True once every batch bucket has run (--prewarm)
+            prewarmed=self.pipeline.prewarmed,
+            hbm_bytes_in_use=in_use,
+            hbm_bytes_limit=limit,
+        )
+        return payload
+
+    def _run_batch(self, payloads: List[Dict[str, Any]]
+                   ) -> List[Dict[str, Any]]:
+        images = [p["image"] for p in payloads]
+        heights = [[p["height"]] for p in payloads]
+        thresholds = [p["threshold"] for p in payloads]
+        # packed [n, P, 23] = valid | 11 lengths | 11 visibility
+        packed = self.pipeline.infer_serving(
+            images, person_heights=heights, det_threshold=thresholds
+        )
+        responses = []
+        for row in packed:
+            # first valid person slot (the reference serves person 0 only,
+            # server.py:61-67)
+            slot = next((s for s in range(row.shape[0]) if row[s, 0] > 0.5),
+                        None)
+            if slot is None:
+                responses.append({
+                    "code": "success",
+                    "msg": "No humans detected",
+                    "body_proportion_lengths_(cm)": {},
+                })
+            else:
+                responses.append({
+                    "code": "success",
+                    "msg": "human body proportion estimation complete",
+                    "body_proportion_lengths_(cm)": prop_ops.to_dist_dict(
+                        row[slot, 1:12], row[slot, 12:23] > 0.5),
+                })
+        return responses
+
+    def handle_estimation(self, form) -> Dict[str, Any]:
+        if "file" not in form:
+            raise ValueError("missing 'file' form field")
+        height, threshold, back_url = _form_fields(form, {
+            "person_height_in_cm": 175, "threshold": 0.70, "back_url": ""})
+        with self.stages.stage("request_decode"):
+            image = decode_image_bytes(form["file"].data)
+        response = self.batcher.infer(
+            {"image": image, "height": height, "threshold": threshold}
+        )
+        if back_url:
+            self._post_webhook(back_url, response)
+        return response
+
+    def handle_video_estimation(self, form) -> Dict[str, Any]:
+        """POST /body_proportion_length_estimation_video: the frames go
+        through the same batcher as image requests; per-frame person-0
+        results plus the median across frames."""
+        if "file" not in form:
+            raise ValueError("missing 'file' form field")
+        height, threshold, back_url, frame_stride, max_frames = _form_fields(
+            form, {"person_height_in_cm": 175, "threshold": 0.70,
+                   "back_url": "", "frame_stride": 1,
+                   "max_frames": self.DEFAULT_MAX_VIDEO_FRAMES})
+        response = self.run_video(
+            form["file"].data, height, threshold, frame_stride, max_frames
+        )
+        if back_url:
+            self._post_webhook(back_url, response)
+        return response
+
+    def open_video_stream_form(self, form):
+        """Parse the streaming route's form and open the frame stream:
+        (fps, frame_stride, per-frame iterator). Raises before any byte is
+        streamed on a bad form or an undecodable video, so the handler can
+        still answer with the single failed JSON."""
+        if "file" not in form:
+            raise ValueError("missing 'file' form field")
+        height, threshold, frame_stride, max_frames = _form_fields(form, {
+            "person_height_in_cm": 175, "threshold": 0.70,
+            "frame_stride": 1, "max_frames": 0})
+        fps, it = self.open_video_stream(
+            form["file"].data, height, threshold, frame_stride, max_frames
+        )
+        return fps, frame_stride, it
+
+    def open_video_stream(self, video_bytes: bytes, height: float,
+                          threshold: float, frame_stride: int = 1,
+                          max_frames: int = 0):
+        """Decode a video and pipeline its frames through the batcher,
+        yielding per-frame dicts IN FRAME ORDER: (fps, iterator). A sliding
+        window of VIDEO_CHUNK pending futures keeps the batcher fed while
+        bounding decoded-frame memory."""
+        from collections import deque
+
+        from human_body_proportion_estimation_tpu_torch.utils.io import (
+            stream_video_bytes,
+        )
+
+        frames, fps = stream_video_bytes(video_bytes, frame_stride)
+
+        def gen():
+            pending: deque = deque()  # (original frame index, Future)
+
+            def drain_one() -> Dict[str, Any]:
+                idx, fut = pending.popleft()
+                r = fut.result()
+                return {
+                    "frame": idx,
+                    "msg": r["msg"],
+                    "body_proportion_lengths_(cm)":
+                        r["body_proportion_lengths_(cm)"],
+                }
+
+            for n, frame in enumerate(frames):
+                if max_frames and n >= max_frames:
+                    frames.close()
+                    break
+                payload = {"image": frame, "height": height,
+                           "threshold": threshold}
+                try:
+                    fut = self.batcher.submit(payload)
+                except queue.Full:
+                    # our own window may be what filled the queue: finish
+                    # it and retry once before giving up
+                    while pending:
+                        yield drain_one()
+                    fut = self.batcher.submit(payload)
+                pending.append((n * frame_stride, fut))
+                if len(pending) >= self.VIDEO_CHUNK:
+                    yield drain_one()
+            while pending:
+                yield drain_one()
+
+        return fps, gen()
+
+    def run_video(self, video_bytes: bytes, height: float, threshold: float,
+                  frame_stride: int = 1, max_frames: int = 0
+                  ) -> Dict[str, Any]:
+        fps, it = self.open_video_stream(
+            video_bytes, height, threshold, frame_stride, max_frames
+        )
+        return self.summarize_video(list(it), fps, frame_stride)
+
+    @staticmethod
+    def summarize_video(per_frame: List[Dict[str, Any]], fps: float,
+                        frame_stride: int) -> Dict[str, Any]:
+        """Per-frame results -> the video response (median across frames
+        per segment)."""
+        numeric: Dict[str, List[float]] = {}
+        found_any = False
+        for f in per_frame:
+            if f["msg"] != "No humans detected":
+                found_any = True
+            for k, v in f["body_proportion_lengths_(cm)"].items():
+                if isinstance(v, (int, float)):
+                    numeric.setdefault(k, []).append(float(v))
+        summary = {
+            k: float(np.median(v)) for k, v in sorted(numeric.items())
+        }
+        return {
+            "code": "success",
+            "msg": ("human body proportion estimation complete"
+                    if found_any else "No humans detected"),
+            "fps": fps,
+            "frame_stride": frame_stride,
+            "num_frames_processed": len(per_frame),
+            "frames": per_frame,
+            "median_body_proportion_lengths_(cm)": summary,
+        }
+
+    @staticmethod
+    def _post_webhook(url: str, payload: Dict[str, Any]):
+        # fire-and-log, like ModelProcessTask (server.py:69-82)
+        try:
+            import requests
+
+            requests.post(
+                url,
+                headers={"Content-Type": "application/json"},
+                data=json.dumps(payload),
+                timeout=(3, 100),
+            )
+        except Exception as e:  # noqa: BLE001
+            traceback.print_exc()
+            log.error("webhook_failed", error=str(e))
+
+    def shutdown(self):
+        self.batcher.shutdown()
+
+
+def _json_default(o):
+    if isinstance(o, (np.floating,)):
+        return float(o)
+    if isinstance(o, (np.integer,)):
+        return int(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    raise TypeError(f"not serializable: {type(o)}")
+
+
+def make_handler(app: ServingApp):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def _send_json(self, obj, status=200):
+            body = json.dumps(obj, default=_json_default).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _send_ndjson_stream(self, lines):
+            """Chunked application/x-ndjson: one JSON object per line,
+            written as each becomes available."""
+            self.send_response(200)
+            self.send_header("Content-Type", "application/x-ndjson")
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            for obj in lines:
+                data = json.dumps(obj, default=_json_default).encode() \
+                    + b"\n"
+                self.wfile.write(f"{len(data):x}\r\n".encode())
+                self.wfile.write(data + b"\r\n")
+                self.wfile.flush()
+            self.wfile.write(b"0\r\n\r\n")
+
+        def log_message(self, fmt, *args):  # quiet access log
+            pass
+
+        def do_GET(self):
+            if self.path == "/":
+                self._send_json(WELCOME)
+            elif self.path == "/health":
+                self._send_json(app.health())
+            elif self.path == "/metrics":
+                self._send_json(app.metrics_snapshot())
+            elif self.path in ("/v2/health/live", "/v2/health/ready"):
+                # KServe-v2 liveness/readiness: a process that answers is
+                # both live and ready
+                self._send_json({self.path.rsplit("/", 1)[1]: True})
+            elif self.path == "/v2":
+                from human_body_proportion_estimation_tpu_torch import (
+                    __version__,
+                )
+
+                self._send_json({
+                    "name": "human_body_proportion_estimation_tpu_torch",
+                    "version": __version__,
+                    "extensions": V2_EXTENSIONS,
+                })
+            elif self.path == "/v2/logging":
+                # Triton logging extension (get_log_settings)
+                self._send_json(hbpe_logging.log_settings())
+            elif self.path == "/v2/trace/setting":
+                # Triton trace extension (get_trace_settings)
+                self._send_json(tracing.TRACER.settings())
+            elif self.path == "/docs":
+                body = _SWAGGER_UI_HTML.encode()
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/html; charset=utf-8")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif self.path == "/openapi.json":
+                self._send_json(build_schema(app.DEFAULT_MAX_VIDEO_FRAMES))
+            else:
+                self._send_json({"detail": "Not Found"}, 404)
+
+        def _stream_video(self, form):
+            """Header line, per-frame lines in order, summary line last.
+            Errors before the first byte fall back to the single failed
+            JSON; mid-stream errors end the stream with a code='failed'
+            line."""
+            fps, stride, frames = app.open_video_stream_form(form)
+
+            def lines():
+                yield {"code": "success", "fps": fps,
+                       "frame_stride": stride}
+                collected = []
+                try:
+                    for f in frames:
+                        collected.append(f)
+                        yield f
+                except Exception as e:  # noqa: BLE001
+                    traceback.print_exc()
+                    log.error("video_stream_failed", error=str(e))
+                    yield {"code": "failed", "msg": FAIL_MSG}
+                    return
+                summary = app.summarize_video(collected, fps, stride)
+                summary.pop("frames")  # already streamed line by line
+                yield summary
+
+            self._send_ndjson_stream(lines())
+
+        def _v2_settings_update(self):
+            """POST /v2/logging | /v2/trace/setting: a JSON body with the
+            fields to change; the answer is the whole resulting settings
+            document; unknown fields or bad values are the extensions'
+            400 {"error": ...}."""
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                updates = json.loads(self.rfile.read(length) or b"{}")
+                if not isinstance(updates, dict):
+                    raise ValueError("body must be a JSON object")
+                if self.path == "/v2/logging":
+                    self._send_json(hbpe_logging.configure_logging(updates))
+                else:
+                    self._send_json(tracing.TRACER.update(updates))
+            except (ValueError, json.JSONDecodeError) as e:
+                self._send_json({"error": str(e)}, 400)
+
+        def do_POST(self):
+            routes = {
+                "/body_proportion_length_estimation_file":
+                    app.handle_estimation,
+                "/body_proportion_length_estimation_video":
+                    app.handle_video_estimation,
+            }
+            stream = self.path == \
+                "/body_proportion_length_estimation_video_stream"
+            handler = routes.get(self.path)
+            if handler is None and not stream:
+                if self.path in ("/v2/logging", "/v2/trace/setting"):
+                    self._v2_settings_update()
+                    return
+                self._send_json({"detail": "Not Found"}, 404)
+                return
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                body = self.rfile.read(length)
+                form = parse_multipart(
+                    body, self.headers.get("Content-Type", "")
+                )
+                if stream:
+                    self._stream_video(form)
+                else:
+                    self._send_json(handler(form))
+            except queue.Full:
+                log.warning("backpressure_reject")
+                self._send_json(
+                    {"code": "failed", "msg": "server overloaded"}, 503
+                )
+            except Exception as e:  # noqa: BLE001 — parity: never 500
+                traceback.print_exc()
+                log.error("request_failed", error=str(e))
+                self._send_json({"msg": FAIL_MSG, "code": "failed"})
+
+    return Handler
+
+
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    # the stdlib default listen backlog (5) resets connections under
+    # concurrent load
+    request_queue_size = 128
+
+
+def create_server(app: ServingApp, host: str, port: int) -> ThreadingHTTPServer:
+    return _Server((host, port), make_handler(app))
+
+
+# options of the JAX server that the port does not serve yet, and the
+# ROADMAP.md item that brings each
+_NOT_YET = (
+    ("grpc_port", "--grpc-port", "item 9 (slice 5: gRPC and the model "
+                                 "registry)"),
+    ("artifact_dir", "--artifact-dir", "item 16 (the deployable artifact)"),
+    ("data_parallel", "--data-parallel", "item 16 (multi-device serving)"),
+    ("bottom_up", "--bottom-up", "item 13 (bottom-up pose)"),
+    ("checkpoint_dir", "--checkpoint-dir", "item 17 (importers: orbax "
+                                           "checkpoints)"),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX server's flags, option for option."""
+    parser = argparse.ArgumentParser(
+        description="GPU body proportion estimation service (PyTorch port)"
+    )
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=8080)
+    parser.add_argument("--grpc-port", type=int, default=0,
+                        help="gRPC endpoint port (0 disables); the port has "
+                             "no gRPC edge yet, so anything else exits")
+    parser.add_argument(
+        "--detector", default="efficientdet_lite4",
+        choices=["efficientdet_lite4", "efficientdet_lite0",
+                 "ssd_mobilenet", "yolov5s", "yolov5m"],
+        help="only efficientdet_lite4 (the committed synthetic-certified "
+             "weights) is ported; the other slots exit",
+    )
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="orbax checkpoint dir with det/pose params "
+                             "(not ported yet: exits)")
+    parser.add_argument("--artifact-dir", default=None,
+                        help="serve an exported artifact (not ported yet: "
+                             "exits)")
+    parser.add_argument("--data-parallel", type=int, default=0,
+                        help="shard serving batches over N devices (not "
+                             "ported yet: N > 1 exits)")
+    parser.add_argument(
+        "--prewarm", action="store_true",
+        help="run the serving forward at every batch bucket before "
+             "accepting traffic; /health reports prewarmed: true",
+    )
+    parser.add_argument(
+        "--compile-cache-dir", default="",
+        help="accepted for the JAX server's command lines; the port has no "
+             "program cache (its kernels' build cache persists anyway)",
+    )
+    parser.add_argument("--no-compile-cache", action="store_true",
+                        help="accepted and ignored, as --compile-cache-dir")
+    parser.add_argument("--bottom-up", action="store_true",
+                        help="serve the bottom-up pipeline (not ported yet: "
+                             "exits)")
+    return parser
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    for attr, flag, item in _NOT_YET:
+        value = getattr(args, attr)
+        if value and not (attr == "data_parallel" and value <= 1):
+            parser.error(f"{flag} is not ported yet: ROADMAP.md {item}")
+    if args.detector != "efficientdet_lite4":
+        parser.error(f"--detector {args.detector} is not ported yet: "
+                     "ROADMAP.md items 10-12 (slice 6: the other slots)")
+
+    from human_body_proportion_estimation_tpu_torch.models.weights import (
+        default_certified_checkpoint,
+    )
+
+    pipeline = InferencePipeline(device="cuda")
+    print("serving committed synthetic-certified weights for "
+          f"pose+detector ({default_certified_checkpoint()})", flush=True)
+    _serve(args, pipeline)
+
+
+def _serve(args, pipeline):
+    if args.prewarm:
+        import time
+
+        from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+            prewarm_serving,
+        )
+
+        t0 = time.time()
+        warmed = prewarm_serving(pipeline)
+        log.info("prewarmed", buckets=warmed,
+                 seconds=round(time.time() - t0, 1))
+        print(f"prewarmed batch buckets {warmed} "
+              f"in {time.time() - t0:.1f}s", flush=True)
+    app = ServingApp(pipeline)
+    server = create_server(app, args.host, args.port)
+    log.info("http_listening", host=args.host, port=args.port,
+             engine="native" if app.native else "python",
+             detector=args.detector)
+    print(f"serving on {args.host}:{args.port}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        app.shutdown()
+
+
+if __name__ == "__main__":
+    main()

@@ -22,7 +22,7 @@ import human_body_proportion_estimation_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 16, names
+assert len(names) >= 36, names
 import chip_smoke
 assert not [m for m in sys.modules if m.startswith(("jax", "flax"))
             and sys.modules[m] is not None]
