@@ -64,8 +64,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   B. CLI: `python3 -m human_body_proportion_estimation_tpu_torch.cli.
      detect_pose` on a directory of the 3 scenes, in a subprocess: exit 0,
      3 frame_*.jpg files, every printed person's cm against the goldens.
-  4. report: a `kernels` JSON line, the card's name and power limit, and
-     the result line {"ok": true, "device": {...}} last.
+  C. the model registry and the wire protocols, on the same pipeline: a
+     `ServingApp` on 127.0.0.1:0 and, where `grpc` and `google.protobuf`
+     import, its gRPC server (hbpe and KServe services) on 127.0.0.1:0;
+     without them a line names the missing module and only HTTP is driven.
+     The index and the documents of the 4 models at full width; the
+     ensemble on the 3 scenes over HTTP binary_tensor_data (and gRPC
+     ModelInfer): as many persons as the goldens, boxes within 0.01 of the
+     main path's, heatmaps decoded by the decode kernel into cm as the
+     reference client does, under phase 3's rule; edetlite4 and
+     edetlite4_modified: 100 slots, scores non-increasing, 1-based
+     classes, and the NMS kernel's keep masks equal to the plain version's
+     on the very candidates the path gave it; hrnet under 48 requests of
+     1-4 crops from 16 threads (each answer against a forward of its
+     rows in a launch bucket, fewer launches than requests); hbpe
+     Estimate on the scenes. Every
+     request is counted from 0: an EfficientDet registry request launches
+     nms_sweep once and nothing else, hrnet nothing, an Estimate batch
+     each kernel once. Prints hrnet requests/s, rows per launch and
+     p50/p95 at 16 clients, and the ensemble's ms a request at 1 client.
+  4. report: a `kernels` JSON line (launches: phases 3, A and C), the
+     card's name and power limit, and the result line
+     {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX; builds into the package's gitignored `build/`.
 """
@@ -948,6 +968,412 @@ def run_cli(golden, repo):
         "%.4f, max %.4f" % check_mean(d_all, "cli"))
 
 
+# --------------------------------------------------------------------- #
+# phase C: the model registry and the wire protocols
+
+
+REGISTRY_MODELS = ["edetlite4", "edetlite4_modified",
+                   "ensemble_edet4_person_det_pose", "hrnet"]
+NOT_PORTED = ["higherhrnet", "ssd_mobilenet", "yolov5m", "yolov5s"]
+ENSEMBLE = "ensemble_edet4_person_det_pose"
+KERNELS = ("decode_heatmaps", "head_score", "nms_sweep")
+
+
+def grpc_modules():
+    """(missing module name or None): whether this machine has what the
+    gRPC edge needs."""
+    import importlib
+
+    for name in ("grpc", "google.protobuf"):
+        try:
+            importlib.import_module(name)
+        except ImportError:
+            return name
+    return None
+
+
+class Counted:
+    """Launch counts of the kernels over the windows it is entered, each
+    window set to 0 just before and read just after; `last` is the
+    window's own counts, `total` the sum over all windows."""
+
+    def __init__(self, k):
+        self.k, self.total, self.last = k, dict.fromkeys(KERNELS, 0), None
+
+    def __enter__(self):
+        self.k.reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        self.last = self.k.launch_counts()
+        for name, n in self.last.items():
+            self.total[name] += n
+        return False
+
+
+@contextlib.contextmanager
+def recording_nms(k):
+    """Every (boxes, scores, threshold, keep) the NMS sweep kernel gets and
+    gives while inside, so that its keep masks can be held against the
+    plain version on the same candidates afterwards."""
+    seen, launch = [], k.nms_sweep
+
+    def record(boxes, scores, t):
+        keep = launch(boxes, scores, t)
+        seen.append((boxes.clone(), scores.clone(), t, keep.clone()))
+        return keep
+
+    k.nms_sweep = record
+    try:
+        yield seen
+    finally:
+        k.nms_sweep = launch
+
+
+def ensemble_cm(k, boxes_norm, heatmaps, image_hw, height, cfg):
+    """The reference client's use of the ensemble's outputs
+    (person_det_pose_edet4_trtserver.py:131-171): decode the heatmaps (the
+    port's decode kernel), gate, map the keypoints into the box in image
+    pixels, px -> cm by the box height, 11 segments. One cm dict a
+    person."""
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.ops import (
+        heatmap as hm_ops,
+        proportions as prop_ops,
+    )
+
+    n = boxes_norm.shape[0]
+    hm = torch.from_numpy(np.array(heatmaps[:n])).cuda()
+    kp, scores = k.decode_heatmaps(hm)
+    h, w = image_hw
+    boxes = torch.from_numpy(np.array(boxes_norm)).cuda()[None] * torch.tensor(
+        [h, w, h, w], dtype=torch.float32, device="cuda")
+    visible = hm_ops.gate_keypoints(scores[None], cfg.pose.keypoint_thresholds)
+    kp_img = hm_ops.remap_to_image(kp[None], boxes, tuple(hm.shape[-2:]))
+    bt = torch.trunc(boxes)
+    to_cm = height / (bt[..., 2] - bt[..., 0]).clamp_min(1.0)
+    seg = prop_ops.segment_lengths(kp_img, visible, to_cm)
+    lengths = torch.where(seg.visible, seg.lengths_cm, 0.0)[0].cpu().numpy()
+    vis = seg.visible[0].cpu().numpy()
+    return [prop_ops.to_dist_dict(lengths[i], vis[i]) for i in range(n)]
+
+
+def hrnet_load(send, requests, clients):
+    """`send(x)` for every request from `clients` threads: (outputs in
+    request order, per-request seconds, wall seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(x):
+        t0 = time.perf_counter()
+        out = send(x)
+        return out, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(clients) as pool:
+        got = list(pool.map(one, requests))
+    return [g[0] for g in got], [g[1] for g in got], time.perf_counter() - t0
+
+
+def pct(values, q):
+    s = sorted(values)
+    return s[min(len(s) - 1, int(round(q / 100 * (len(s) - 1))))]
+
+
+def run_registry_and_wire(k, pipe, golden, scene_bytes):
+    """Phase C: the port's model registry behind the HTTP /v2 routes and,
+    where grpc and protobuf import, the hbpe and KServe gRPC services, all
+    on the serving pipeline of phase 3 on the card. Returns the launches
+    of the path's requests (comparisons excluded)."""
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        _pad_batch,
+        decode_image_bytes,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.client import (
+        HttpClient,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.server import (
+        ServingApp,
+    )
+
+    cfg = pipe.config
+    height, thres = golden["person_height_cm"], golden["det_threshold"]
+    missing = grpc_modules()
+    if missing:
+        log(f"phase C: no module named '{missing}' on this machine: the gRPC "
+            "edge is not driven, the HTTP /v2 routes are")
+    counted = Counted(k)
+    images = [decode_image_bytes(b)[None] for b in scene_bytes]
+    det_hw = (cfg.detector.input_height, cfg.detector.input_width)
+    xy_change = np.array([cfg.x_expand, 0.0], np.float32)
+    figures = {}
+    app = ServingApp(pipe)
+    grpc_server = None
+    with served(app) as port:
+        http = HttpClient("127.0.0.1", port)
+        clients = {"http": http.infer}
+        if not missing:
+            from human_body_proportion_estimation_tpu_torch.serve.grpc_server import (  # noqa: E501
+                GrpcClient,
+                create_grpc_server,
+            )
+            from human_body_proportion_estimation_tpu_torch.serve.kserve_grpc import (  # noqa: E501
+                KServeClient,
+            )
+
+            grpc_server, gport = create_grpc_server(app, "127.0.0.1", 0)
+            grpc_server.start()
+            hbpe = GrpcClient(f"127.0.0.1:{gport}")
+            kserve = KServeClient(f"127.0.0.1:{gport}")
+            clients["kserve"] = (lambda name, inputs, output_names=None:
+                                 kserve.infer(name, inputs, output_names))
+            clients["hbpe"] = hbpe.infer
+        try:
+            # the index and the documents, at full width
+            index = http.models()["models"]
+            assert [r["name"] for r in index] == REGISTRY_MODELS, index
+            assert all(r["weights"] == "synthetic-certified" for r in index)
+            assert [r["name"] for r in http.get_model_repository_index()] \
+                == REGISTRY_MODELS
+            ch, cw = cfg.pose.crop_height, cfg.pose.crop_width
+            hm_shape = [cfg.pose.num_keypoints, ch // 4, cw // 4]
+            meta = {n: http.model_metadata(n) for n in REGISTRY_MODELS}
+            conf = {n: http.model_config(n) for n in REGISTRY_MODELS}
+            assert meta["hrnet"]["inputs"][0]["shape"] == [-1, 3, ch, cw]
+            assert meta["hrnet"]["outputs"][0]["shape"] == [-1, *hm_shape]
+            assert meta["hrnet"]["max_batch_size"] == cfg.serve.max_batch
+            assert conf["hrnet"]["input"][0]["dims"] == [3, ch, cw]
+            assert meta[ENSEMBLE]["outputs"][1]["shape"] == [-1, *hm_shape]
+            assert meta[ENSEMBLE]["platform"] == "pytorch_ensemble"
+            assert meta["edetlite4_modified"]["outputs"][4]["shape"] == [
+                -1, 3, ch, cw]
+            assert meta["edetlite4"]["outputs"][0]["shape"] == [1, 100, 4]
+            assert conf["edetlite4"]["max_batch_size"] == 0
+            for n in NOT_PORTED:
+                status, _, _ = http._request_raw("GET", f"/v2/models/{n}",
+                                                 b"", {})
+                assert status == 404, (n, status)
+            if not missing:
+                assert [r["name"] for r in hbpe.repository_index()] == \
+                    REGISTRY_MODELS
+                for n in REGISTRY_MODELS:
+                    m = kserve.get_model_metadata(n)
+                    assert [list(t.shape) for t in m.outputs] == [
+                        t["shape"] for t in meta[n]["outputs"]], n
+                    assert hbpe.model_config(n)["max_batch_size"] == \
+                        conf[n]["max_batch_size"]
+            log("phase C: index and documents of the 4 models at full width "
+                "agree over " + ", ".join(clients))
+
+            # the ensemble on the scenes, against the main path and goldens
+            main = pipe.infer_images([i[0] for i in images], height, thres)
+            d_all = []
+            for s, img in enumerate(images):
+                inputs = {"edet_input_image": img,
+                          "det_thres": np.array([thres], np.float32),
+                          "det_xy_change": xy_change}
+                outs = {}
+                for via, infer in clients.items():
+                    with counted:
+                        outs[via] = infer(ENSEMBLE, inputs)
+                    assert counted.last == {"decode_heatmaps": 0,
+                                            "head_score": 0,
+                                            "nms_sweep": 1}, counted.last
+                out = outs["http"]
+                for via, o in outs.items():
+                    for key in o:
+                        np.testing.assert_allclose(o[key], out[key],
+                                                   rtol=1e-5, atol=1e-5,
+                                                   err_msg=f"{via} {key}")
+                boxes = out["ENSEMBLE_OUTPUT_FILTER_DET_BOXES"]
+                n_ref = int((np.asarray(golden["packed"])[s, :, 0]
+                             > 0.5).sum())
+                assert boxes.shape[0] == n_ref, (s, boxes, n_ref)
+                ref_boxes = main.boxes_norm[s][main.person_valid[s]]
+                assert np.abs(boxes - ref_boxes).max() <= 0.01, (
+                    boxes, ref_boxes)
+                cms = ensemble_cm(k, boxes,
+                                  out["ENSEMBLE_OUTPUT_HEATMAPS"],
+                                  img.shape[1:3], height, cfg)
+                for nth, cm in enumerate(cms):
+                    d_all += check_answer(cm, golden, s, height,
+                                          f"ensemble scene {s}", nth)
+            ens_mean, ens_max = check_mean(d_all, "ensemble")
+            log(f"phase C: ensemble over {', '.join(clients)}: persons as "
+                "the goldens, boxes within 0.01 of the main path's, cm "
+                f"against the goldens mean |dcm| {ens_mean:.4f}, max "
+                f"{ens_max:.4f}")
+
+            # the detector models: contracts, and the NMS kernel against
+            # its plain version on the candidates the path gave it
+            n_cases = 0
+            for s, img in enumerate(images):
+                with recording_nms(k) as seen:
+                    with counted:
+                        raw = http.infer("edetlite4", {"image": img})
+                    assert counted.last["nms_sweep"] == 1 and \
+                        counted.last["head_score"] == 0, counted.last
+                    with counted:
+                        mod = http.infer("edetlite4_modified", {
+                            "edet_input_image": img,
+                            "det_thres": np.array([thres], np.float32),
+                            "det_xy_change": xy_change})
+                    assert counted.last == {"decode_heatmaps": 0,
+                                            "head_score": 0,
+                                            "nms_sweep": 1}, counted.last
+                for boxes, scores, t, keep in seen:
+                    assert boxes.is_cuda and boxes.shape == (
+                        1, cfg.detector.nms_top_k, 4), boxes.shape
+                    plain = k.nms_sweep_plain(boxes, scores, t)
+                    assert torch.equal(keep, plain), (s, keep, plain)
+                    n_cases += 1
+                for scores, classes, out_boxes in (
+                        (raw["output_1"][0], raw["output_2"][0],
+                         raw["output_0"][0]),
+                        (mod["detection_scores"], mod["detection_classes"],
+                         mod["detection_boxes"])):
+                    assert scores.shape == (100,) and out_boxes.shape == (
+                        100, 4)
+                    valid = scores > 0
+                    assert valid.any() and (np.diff(scores) <= 0).all()
+                    assert ((classes[valid] >= 1) & (classes[valid] <= 90)
+                            ).all() and (classes[~valid] == 0).all()
+                    assert (classes == np.round(classes)).all()
+                np.testing.assert_allclose(
+                    raw["output_1"][0], mod["detection_scores"], atol=1e-6)
+                assert mod["human_crops"].shape[1:] == (3, ch, cw)
+                assert mod["filtered_boxes"].shape[0] == (
+                    mod["human_crops"].shape[0])
+            log(f"phase C: edetlite4 / edetlite4_modified: 100 slots, scores "
+                f"non-increasing, classes 1-based; the NMS kernel equals its "
+                f"plain version on the {n_cases} candidate sets of the path "
+                f"(K = {cfg.detector.nms_top_k}, class-offset boxes)")
+
+            # hrnet under load: 48 requests of 1-4 crops from 16 threads
+            crops = http.infer("edetlite4_modified", {
+                "edet_input_image": images[0],
+                "det_thres": np.array([0.05], np.float32),
+                "det_xy_change": xy_change})["human_crops"]
+            rng = np.random.default_rng(0)
+            pool = np.concatenate([crops, rng.random((4, 3, ch, cw),
+                                                     np.float32)])
+            requests = [pool[rng.integers(0, len(pool), 1 + i % 4)]
+                        for i in range(48)]
+            entry = app.registry._models["hrnet"]
+            # the references: each request's rows padded with zeros to every
+            # launch bucket that holds them (the registry pads a launch so),
+            # and alone. cuDNN picks its algorithm by the batch size, so the
+            # bf16 forward rounds differently at another size, not by what
+            # the other rows hold: the bucket the request was launched in
+            # reproduces its answer
+            buckets = sorted({_pad_batch(m, cfg.serve.max_batch)
+                              for m in range(1, cfg.serve.max_batch + 1)})
+            with torch.inference_mode():
+                def forward(x, b):
+                    pad = np.zeros((b - len(x),) + x.shape[1:], x.dtype)
+                    xb = torch.from_numpy(np.concatenate([x, pad])).cuda()
+                    return pipe.pose(xb).float()[:len(x)].cpu().numpy()
+
+                by_bucket = [{b: forward(x, b) for b in buckets
+                              if b >= len(x)} for x in requests]
+                alone = [forward(x, len(x)) for x in requests]
+            for via, infer in clients.items():
+                infer("hrnet", {"input": requests[3]})      # load + warm
+                stats0 = {b: c[0] for b, c in entry.batch_stats.items()}
+                runs0 = entry.batches_run
+                with counted:
+                    outs, lat, wall = hrnet_load(
+                        lambda x, infer=infer: infer("hrnet", {"input": x}),
+                        requests, 16)
+                assert counted.last == dict.fromkeys(KERNELS, 0)
+                launches = entry.batches_run - runs0
+                rows = {b: c[0] - stats0.get(b, 0)
+                        for b, c in entry.batch_stats.items()}
+                n_rows = sum(b * c for b, c in rows.items())
+                assert n_rows == sum(len(x) for x in requests)
+                assert launches < len(requests), launches
+                assert max(b for b, c in rows.items() if c) <= \
+                    cfg.serve.max_batch
+                err = mean_err = err_alone = 0.0
+                for i, out in enumerate(outs):
+                    scale = float(np.abs(alone[i]).max())
+                    d = {b: np.abs(out["output"] - ref)
+                         for b, ref in by_bucket[i].items()}
+                    b = min(d, key=lambda b: float(d[b].max()))
+                    err = max(err, float(d[b].max()) / scale)
+                    mean_err = max(mean_err, float(d[b].mean()) / scale)
+                    err_alone = max(err_alone, float(
+                        np.abs(out["output"] - alone[i]).max()) / scale)
+                log(f"phase C: hrnet over {via}, each answer against the "
+                    "forward of its rows in the nearest launch bucket: "
+                    f"largest error {err:.3g} of the peak, largest mean "
+                    f"{mean_err:.3g}; against its rows alone {err_alone:.3g}")
+                assert err <= 0.01 and mean_err <= 0.001, (
+                    via, err, mean_err, err_alone)
+                figures[f"hrnet_{via}"] = dict(
+                    requests=len(requests), client_threads=16,
+                    requests_per_s=len(requests) / wall,
+                    launches=launches, mean_rows_per_launch=n_rows / launches,
+                    latency_ms_p50=1e3 * pct(lat, 50),
+                    latency_ms_p95=1e3 * pct(lat, 95),
+                    max_err_vs_bucket_forward_over_peak=err,
+                    mean_err_vs_bucket_forward_over_peak=mean_err,
+                    max_err_vs_forward_alone_over_peak=err_alone)
+            log(f"phase C: hrnet under load, 48 requests of 1-4 crops from 16 "
+                f"threads: {json.dumps(figures)}")
+            log(f"phase C card: {card_line()}")
+
+            # the ensemble at one client: ms a request
+            inputs = {"edet_input_image": images[0],
+                      "det_thres": np.array([thres], np.float32),
+                      "det_xy_change": xy_change}
+            for via, infer in clients.items():
+                infer(ENSEMBLE, inputs)
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    with counted:
+                        infer(ENSEMBLE, inputs)
+                figures[f"ensemble_{via}_ms_per_request"] = (
+                    (time.perf_counter() - t0) * 1e3 / 10)
+
+            # hbpe Estimate on the scenes: each request one batch, each
+            # kernel launched once
+            if not missing:
+                d_all = []
+                for s, bts in enumerate(scene_bytes):
+                    m0 = http.metrics()
+                    with counted:
+                        r = hbpe.estimate(bts, height, thres)
+                    batches = http.metrics()["batches_total"] - \
+                        m0["batches_total"]
+                    assert counted.last == dict.fromkeys(KERNELS, batches) \
+                        and batches == 1, (counted.last, batches)
+                    assert r["code"] == "success", r
+                    d_all += check_answer(r["body_proportion_lengths_(cm)"],
+                                          golden, s, height,
+                                          f"hbpe Estimate scene {s}")
+                log("phase C: hbpe Estimate on the 3 scenes, one batch and "
+                    "one launch of each kernel a request; against the "
+                    "goldens mean |dcm| %.4f, max %.4f"
+                    % check_mean(d_all, "hbpe Estimate"))
+            metrics = http.metrics()
+            assert sorted(metrics["models"]) == REGISTRY_MODELS, metrics
+        finally:
+            if grpc_server is not None:
+                hbpe.close()
+                kserve.close()
+                grpc_server.stop(0)
+    figures["grpc"] = "present" if not missing else f"no module {missing}"
+    log(f"phase C figures: {json.dumps(figures)}")
+    log(f"phase C card: {card_line()}")
+    log(f"phase C launches: {counted.total}")
+    return counted.total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -1001,8 +1427,14 @@ def main() -> int:
     if not args.kernels_only:
         launches, pipe, golden, scene_bytes = run_main_path(
             k, dev, profile=args.profile)
-        run_serving_edge(k, pipe, golden, scene_bytes)
+        edge = run_serving_edge(k, pipe, golden, scene_bytes)
         run_cli(golden, os.path.abspath(args.repo))
+        wire_launches = run_registry_and_wire(k, pipe, golden, scene_bytes)
+        # the kernels line counts the launches of every path driven: the
+        # main path (phase 3), the serving edge (A) and the registry and
+        # wire protocols (C), each counted from 0 just before it
+        launches = {name: launches[name] + edge["launches"][name]
+                    + wire_launches[name] for name in launches}
         if args.edge_sweep:
             edge_sweep(pipe, golden, scene_bytes)
     sources = {"decode_heatmaps": "decode_heatmaps.cu",

@@ -11,6 +11,14 @@ person logit without writing the logits out. `forward` returns
 level-major like the anchors, which is the flax
 `EfficientDet(score_kernel=True)(..., prescored=True)` contract.
 
+`forward(images, all_classes=True)` is the canonical head of the same
+module and parameters (flax `EfficientDet(score_kernel=False)`): the class
+predict conv runs in f32 over all classes and `(cls_flat [B, N, C],
+box_flat [B, N, 4])` come back; `postprocess` turns one image of them into
+the 100-slot detection tensors (all-class greedy NMS through
+`ops/nms.nms_fixed`). The model registry serves that path, so it adds no
+second copy of the weights.
+
 Traps handled here:
   * `jax.image.resize(..., "nearest")` (BiFPN top-down path) samples like
     `F.interpolate(mode="nearest-exact")`, not `mode="nearest"`: at
@@ -25,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +42,7 @@ from torch import nn
 from human_body_proportion_estimation_tpu_torch.models.anchors import (
     AnchorConfig,
     decode_boxes,
+    generate_anchors,
 )
 from human_body_proportion_estimation_tpu_torch.models.efficientnet_lite import (
     LITE4,
@@ -48,7 +57,10 @@ from human_body_proportion_estimation_tpu_torch.models.layers import (
     max_pool_same,
     relu6,
 )
-from human_body_proportion_estimation_tpu_torch.ops import kernels
+from human_body_proportion_estimation_tpu_torch.ops import (
+    kernels,
+    nms as nms_ops,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,8 +201,11 @@ class EfficientDet(nn.Module):
         self.box_net = HeadNet(na * 4, cfg.head_repeats, fpn, 5)
         self._class_predict_cache = (None, None, None)
 
-    def forward(self, images: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(self, images: torch.Tensor, all_classes: bool = False
+                ) -> Tuple[torch.Tensor, ...]:
+        """Score-kernel path: (best_logit [B, N], person_logit [B, N],
+        box_flat [B, N, 4]). `all_classes=True`: the canonical head,
+        (cls_flat [B, N, C] f32 logits, box_flat [B, N, 4])."""
         cfg = self.config
         b = images.shape[0]
         na, nc = cfg.anchors.anchors_per_cell, cfg.num_classes
@@ -203,16 +218,24 @@ class EfficientDet(nn.Module):
         for i in range(cfg.fpn_repeats):
             feats = getattr(self, f"bifpn{i}")(feats)
 
-        w_cls, b_cls = self._class_predict_params()
-        zs, boxes = [], []
+        zs, classes, boxes = [], [], []
         for li, f in enumerate(feats):
             z = self.class_net.features(f, li)
-            zs.append(z.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous())
-            # the box head's predict conv runs in f32 (flax dtype=float32)
+            if all_classes:
+                # the canonical head's class predict conv runs in f32 (flax
+                # dtype=float32), as the box head's does
+                o = self.class_net.predict_pw(z.float())
+                classes.append(o.permute(0, 2, 3, 1).reshape(b, -1, nc))
+            else:
+                zs.append(
+                    z.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous())
             zb = self.box_net.features(f, li).float()
             o = self.box_net.predict_pw(zb)
             boxes.append(o.permute(0, 2, 3, 1).reshape(b, -1, 4))
+        if all_classes:
+            return torch.cat(classes, 1), torch.cat(boxes, 1)
         # one launch scores all five levels into the final [B, N] buffers
+        w_cls, b_cls = self._class_predict_params()
         best, person = kernels.head_score_levels(
             zs, w_cls, b_cls, na, nc, self.person_class0)
         return best, person, torch.cat(boxes, 1)
@@ -285,3 +308,63 @@ def person_slots(
     sel_scores, sel = sel_scores[:, :max_persons], sel[:, :max_persons]
     sel_boxes = torch.gather(boxes_yxyx, 1, sel[..., None].expand(-1, -1, 4))
     return sel_boxes, sel_scores, sel_scores > 0.0
+
+
+def postprocess(
+    cls_logits: torch.Tensor,     # [N, C] class logits of one image
+    box_regs: torch.Tensor,       # [N, 4]
+    image_hw: Tuple[int, int],
+    anchors: torch.Tensor,        # [N, 4] (cy, cx, h, w)
+    config: EfficientDetConfig = EFFICIENTDET_LITE4,
+    iou_threshold: float = 0.5,
+    top_k: int = 128,
+):
+    """Canonical head outputs -> the reference's detection tensors for one
+    image: (boxes [100, 4] pixel yxyx, scores [100], classes [100] 1-based,
+    valid [100]) (the served SavedModel's outputs, `models/conv.py:16-18`).
+
+    sigmoid is monotone, so the class max and argmax are taken over the
+    logits and only the winner is activated. `anchors` lie on the logits'
+    device.
+    """
+    best_logit, best_class = cls_logits.max(-1)
+    return postprocess_prescored(
+        best_logit, best_class, box_regs, image_hw, config,
+        iou_threshold=iou_threshold, top_k=top_k, anchors=anchors,
+    )
+
+
+def postprocess_prescored(
+    best_logit: torch.Tensor,     # [N] winning-class logit per anchor
+    best_class: torch.Tensor,     # [N] winning class (0-based int)
+    box_regs: torch.Tensor,       # [N, 4]
+    image_hw: Tuple[int, int],
+    config: EfficientDetConfig = EFFICIENTDET_LITE4,
+    score_threshold: float = 0.0,
+    iou_threshold: float = 0.5,
+    top_k: int = 128,
+    anchors: Optional[torch.Tensor] = None,
+):
+    """`postprocess` for class scores already reduced to the winner: decode,
+    clip to the image, class-wise greedy NMS (`ops/nms.nms_fixed`, the NMS
+    sweep kernel on CUDA), 1-based classes."""
+    h, w = image_hw
+    if anchors is None:
+        anchors = torch.from_numpy(generate_anchors(config.anchors, h, w))
+        anchors = anchors.to(box_regs.device)
+    best_score = torch.sigmoid(best_logit)
+    boxes_yxyx = decode_boxes(box_regs, anchors)
+    limit = torch.tensor([h, w, h, w], dtype=torch.float32,
+                         device=boxes_yxyx.device)
+    boxes_yxyx = boxes_yxyx.clamp_min(0.0).minimum(limit)
+    # the NMS takes xyxy: swap, run class-wise NMS, swap back
+    boxes_xyxy = boxes_yxyx[:, [1, 0, 3, 2]]
+    masked_scores = torch.where(best_score > score_threshold, best_score, 0.0)
+    res = nms_ops.nms_fixed(
+        boxes_xyxy, masked_scores, best_class.float(),
+        iou_threshold=iou_threshold, max_det=config.max_detections,
+        top_k=top_k,
+    )
+    out_yxyx = res.boxes[:, [1, 0, 3, 2]]
+    classes_1based = torch.where(res.valid, res.classes + 1.0, 0.0)
+    return out_yxyx, res.scores, classes_1based, res.valid

@@ -194,12 +194,14 @@ class DynamicBatcher:
                     )
                 done = time.perf_counter()
                 for w, r in zip(batch, results):
-                    w.future.set_result(r)
+                    # counted and traced before its waiter wakes, so that a
+                    # caller reading /metrics or the trace next sees it
                     self.metrics.observe_request(
                         done - w.enqueue_time,
                         launch - w.enqueue_time,
                     )
                     self._maybe_trace(w, launch, done, len(batch))
+                    w.future.set_result(r)
             except Exception as e:  # noqa: BLE001 — fail the whole batch
                 for w in batch:
                     if not w.future.done():

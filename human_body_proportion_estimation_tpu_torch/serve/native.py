@@ -217,10 +217,11 @@ class NativeBatcher:
                         fut.set_exception(error)
             else:
                 for (_, fut, enq), r in zip(items, results):
-                    fut.set_result(r)
+                    # traced before its waiter wakes, as the metrics are
                     tracing.trace_batch_item(
                         self.trace_name, enq, launch, done, len(items)
                     )
+                    fut.set_result(r)
         finally:
             self._inflight.release()
 

@@ -14,9 +14,8 @@ to a branch in `serve.server.make_handler`, and the multipart form fields
 mirror the reference's FastAPI `File(...)`/`Form(...)` parameters
 (`uvicorn_server/server.py:85-102`).
 
-The port's copy of the JAX package's `serve/openapi.py`: the same document
-less the paths that need the model registry (`/v2/models*`,
-`/v2/repository/*`), which the port does not serve yet.
+The port's copy of the JAX package's `serve/openapi.py`: the same
+document, path for path.
 """
 
 from __future__ import annotations
@@ -210,6 +209,91 @@ def build_schema(default_max_frames: int = 0) -> Dict[str, Any]:
                            "per-stage split, per-model registry stats",
                 "responses": _json_response({"type": "object"}, "metrics"),
             }},
+            "/v2/models": {"get": {
+                "summary": "Model-repository index (read-only mirror of "
+                           "the gRPC RepositoryIndex RPC)",
+                "responses": _json_response({"type": "object"}, "index"),
+            }},
+            "/v2/models/{name}": {"get": {
+                "summary": "Per-model metadata (gRPC ModelMetadata "
+                           "mirror); /v2/models/{name}/versions/1 "
+                           "equivalent",
+                "parameters": [{
+                    "name": "name", "in": "path", "required": True,
+                    "schema": {"type": "string"},
+                }],
+                "responses": {
+                    **_json_response({"type": "object"}, "metadata"),
+                    "404": {"description": "unknown model"},
+                },
+            }},
+            "/v2/models/{name}/config": {"get": {
+                "summary": "Triton model-config analog (max_batch_size, "
+                           "instance_group/dp degree, dynamic_batching "
+                           "delay); fetched separately from metadata "
+                           "like tritonclient.get_model_config",
+                "parameters": [{
+                    "name": "name", "in": "path", "required": True,
+                    "schema": {"type": "string"},
+                }],
+                "responses": {
+                    **_json_response({"type": "object"}, "config"),
+                    "404": {"description": "unknown model"},
+                },
+            }},
+            "/v2/models/{name}/ready": {"get": {
+                "summary": "Per-model readiness (tritonclient "
+                           "is_model_ready analog)",
+                "parameters": [{
+                    "name": "name", "in": "path", "required": True,
+                    "schema": {"type": "string"},
+                }],
+                "responses": {
+                    **_json_response({"type": "object"}, "ready"),
+                    "404": {"description": "unknown model"},
+                },
+            }},
+            "/v2/models/{name}/stats": {"get": {
+                "summary": "Per-model inference statistics (Triton "
+                           "get_inference_statistics analog: request/"
+                           "launch counts, queue + compute ns, "
+                           "batch-size histogram); /v2/models/stats "
+                           "returns every model",
+                "parameters": [{
+                    "name": "name", "in": "path", "required": True,
+                    "schema": {"type": "string"},
+                }],
+                "responses": {
+                    **_json_response({"type": "object"}, "stats"),
+                    "404": {"description": "unknown model"},
+                },
+            }},
+            "/v2/models/{name}/infer": {"post": {
+                "summary": "KServe-v2 HTTP inference: JSON tensors "
+                           "({inputs: [{name, shape, datatype, data}], "
+                           "outputs?: [{name}]}) or Triton's "
+                           "binary_tensor_data extension "
+                           "(Inference-Header-Content-Length: J -> first "
+                           "J body bytes are the JSON header, the rest "
+                           "raw little-endian tensor bytes in inputs "
+                           "order via parameters.binary_data_size; "
+                           "binary outputs via parameters.binary_data / "
+                           "request-level binary_data_output; per-output "
+                           "parameters.classification=k returns top-k "
+                           "'value:index' BYTES rows) -> "
+                           "{model_name, model_version, outputs: [...]}; "
+                           "the HTTP twin of the gRPC ModelInfer RPC",
+                "parameters": [{
+                    "name": "name", "in": "path", "required": True,
+                    "schema": {"type": "string"},
+                }],
+                "responses": {
+                    **_json_response({"type": "object"}, "outputs"),
+                    "400": {"description": "malformed request / bad "
+                                           "tensor (KServe {error})"},
+                    "404": {"description": "unknown model"},
+                },
+            }},
             "/v2": {"get": {
                 "summary": "KServe-v2 server metadata (name, version, "
                            "protocol extensions)",
@@ -253,6 +337,27 @@ def build_schema(default_max_frames: int = 0) -> Dict[str, Any]:
                                                 "settings"),
                 },
             },
+            "/v2/repository/index": {"post": {
+                "summary": "Triton model-repository extension: "
+                           "repository index rows {name, version, "
+                           "state, reason}; optional JSON body "
+                           "{\"ready\": true} filters to READY models",
+                "responses": _json_response({"type": "array"}, "index"),
+            }},
+            "/v2/repository/models/{name}/load": {"post": {
+                "summary": "Eagerly load a named model (Triton "
+                           "repository extension; tritonclient "
+                           "load_model); 400 {error} for unknown names",
+                "responses": _json_response({"type": "object"}, "ok"),
+            }},
+            "/v2/repository/models/{name}/unload": {"post": {
+                "summary": "Unload a named model's runner/params "
+                           "(stays registered, reloads on next use); "
+                           "body {parameters: {unload_dependents: true}} "
+                           "also unloads an ensemble's composing models; "
+                           "400 {error} for unknown names",
+                "responses": _json_response({"type": "object"}, "ok"),
+            }},
             "/docs": {"get": {
                 "summary": "Interactive Swagger-UI page rendering "
                            "/openapi.json (the FastAPI auto-docs role)",

@@ -13,11 +13,15 @@ Route/response parity with `uvicorn_server/server.py` and the JAX server
       as chunked NDJSON: header line, frame lines in order, summary last).
   GET  /, /health, /metrics, /docs, /openapi.json, /v2, /v2/health/live,
        /v2/health/ready; GET and POST /v2/logging, /v2/trace/setting.
+  The model registry's KServe-v2 routes (`serve/registry.py`):
+  GET  /v2/models, /v2/models/stats,
+       /v2/models/<name>[/versions/<v>][/config|/ready|/stats]
+  POST /v2/repository/index, /v2/repository/models/<name>/load|unload,
+       /v2/models/<name>[/versions/<v>]/infer (JSON tensors or the
+       binary_tensor_data transport).
 
-Not served yet: the routes backed by the model registry (`/v2/models*`,
-`/v2/repository/*`, `/v2/models/*/infer`) answer the handler's own
-404 {"detail": "Not Found"} until the registry is ported (ROADMAP.md item
-9), and there is no gRPC endpoint.
+`main` also starts the gRPC edge (`serve/grpc_server.py`: the hbpe service
+and the stock KServe service on one port, 8081 by default).
 
 Architecture: request threads decode bytes, submit decoded images to the
 batcher (the C++ `NativeBatcher` with two batches in flight, or the Python
@@ -32,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import queue
+import threading
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List
@@ -56,6 +61,14 @@ from human_body_proportion_estimation_tpu_torch.serve.http import (
 from human_body_proportion_estimation_tpu_torch.serve.openapi import (
     build_schema,
 )
+from human_body_proportion_estimation_tpu_torch.serve.registry import (
+    NP_TO_TRITON,
+    TRITON_TO_NP,
+)
+from human_body_proportion_estimation_tpu_torch.serve.wire import (
+    _classification_rows,
+    serialize_bytes_tensor,
+)
 from human_body_proportion_estimation_tpu_torch.utils import (
     logging as hbpe_logging,
 )
@@ -76,9 +89,13 @@ WELCOME = {
     "Welcome to Human Body Proportion Estimation Web Service":
         "Please visit /docs"
 }
-# the KServe-v2 extensions this server implements so far (the JAX server
-# also lists the registry-backed ones)
-V2_EXTENSIONS = ["health", "logging", "trace"]
+# the KServe-v2 protocol extensions this server implements (the JAX
+# server's list; the gRPC services report the same)
+V2_EXTENSIONS = [
+    "health", "model_repository", "model_repository(unload_dependents)",
+    "model_configuration", "statistics", "binary_tensor_data",
+    "classification", "parameters", "logging", "trace",
+]
 
 # /docs: the interactive Swagger-UI page FastAPI auto-serves in the
 # reference (uvicorn_server/server.py:122-124 points users here): a tiny
@@ -146,6 +163,8 @@ class ServingApp:
         # readback (InferencePipeline.infer_serving)
         self.stages = StageTimer()
         pipeline.stages = self.stages
+        self._registry = None
+        self._registry_lock = threading.Lock()
         serve_cfg = self.config.serve
         self.native = False
         if serve_cfg.native_batcher:
@@ -172,8 +191,29 @@ class ServingApp:
                 metrics=self.metrics,
             )
 
+    @property
+    def registry(self):
+        """The named-model repository (`serve/registry.py`), built at first
+        use so that a deployment of the domain routes alone pays nothing;
+        it shares the serving pipeline's modules. Built under a lock:
+        concurrent first requests must not build two registries (the
+        loser's batcher threads would outlive shutdown)."""
+        if self._registry is None:
+            with self._registry_lock:
+                if self._registry is None:
+                    from human_body_proportion_estimation_tpu_torch.serve.registry import (  # noqa: E501
+                        build_registry,
+                    )
+
+                    self._registry = build_registry(self.pipeline)
+        return self._registry
+
     def metrics_snapshot(self) -> Dict[str, Any]:
         stages = {"stages": self.stages.snapshot()}
+        if self._registry is not None:
+            # per-model figures, once the repository has been touched
+            # (reading /metrics does not build it)
+            stages["models"] = self._registry.stats()
         if self.native:
             m = self.batcher.metrics_json()
             # the key set of the Python engine: runner exceptions are
@@ -387,6 +427,8 @@ class ServingApp:
 
     def shutdown(self):
         self.batcher.shutdown()
+        if self._registry is not None:
+            self._registry.shutdown()
 
 
 def _json_default(o):
@@ -397,6 +439,16 @@ def _json_default(o):
     if isinstance(o, np.ndarray):
         return o.tolist()
     raise TypeError(f"not serializable: {type(o)}")
+
+
+def _model_path(path: str):
+    """/v2/models/<name>[/versions/<v>]/<rest...> -> (name, version or "",
+    [rest...])."""
+    parts = path[len("/v2/models/"):].split("/")
+    name, version, rest = parts[0], "", parts[1:]
+    if len(rest) >= 2 and rest[0] == "versions":
+        version, rest = rest[1], rest[2:]
+    return name, version, rest
 
 
 def make_handler(app: ServingApp):
@@ -456,6 +508,14 @@ def make_handler(app: ServingApp):
             elif self.path == "/v2/trace/setting":
                 # Triton trace extension (get_trace_settings)
                 self._send_json(tracing.TRACER.settings())
+            elif self.path == "/v2/models/stats":
+                # all-models statistics (get_inference_statistics, no name)
+                self._send_json(app.registry.statistics())
+            elif self.path == "/v2/models":
+                # repository index (read-only mirror of RepositoryIndex)
+                self._send_json({"models": app.registry.index()})
+            elif self.path.startswith("/v2/models/"):
+                self._v2_model_get()
             elif self.path == "/docs":
                 body = _SWAGGER_UI_HTML.encode()
                 self.send_response(200)
@@ -468,6 +528,28 @@ def make_handler(app: ServingApp):
                 self._send_json(build_schema(app.DEFAULT_MAX_VIDEO_FRAMES))
             else:
                 self._send_json({"detail": "Not Found"}, 404)
+
+        def _v2_model_get(self):
+            """GET /v2/models/<name>[/versions/<v>][/config|/ready|/stats]:
+            metadata, config, readiness and statistics, the KServe-v2
+            layout tritonclient drives; 404 {"detail": ...} for an unknown
+            name or version."""
+            name, version, rest = _model_path(self.path)
+            try:
+                if rest == ["config"]:
+                    self._send_json(app.registry.config(name, version))
+                elif rest == ["ready"]:
+                    # every registered model is lazily servable -> ready
+                    app.registry.metadata(name, version)
+                    self._send_json({"name": name, "ready": True})
+                elif rest == ["stats"]:
+                    self._send_json(app.registry.statistics(name, version))
+                elif not rest:
+                    self._send_json(app.registry.metadata(name, version))
+                else:
+                    self._send_json({"detail": "Not Found"}, 404)
+            except KeyError as e:
+                self._send_json({"detail": str(e)}, 404)
 
         def _stream_video(self, form):
             """Header line, per-frame lines in order, summary line last.
@@ -512,6 +594,237 @@ def make_handler(app: ServingApp):
             except (ValueError, json.JSONDecodeError) as e:
                 self._send_json({"error": str(e)}, 400)
 
+        def _v2_repository(self):
+            """POST /v2/repository/index and
+            POST /v2/repository/models/<name>/load|unload — Triton's
+            model-repository HTTP extension (tritonclient.http
+            get_model_repository_index / load_model / unload_model). Index
+            takes an optional JSON body {"ready": bool} and returns the
+            repository rows; load/unload return an empty 200 on success
+            and the extension's {"error": ...} 400 otherwise."""
+            try:
+                length = int(self.headers.get("Content-Length", "0"))
+                body = self.rfile.read(length)
+                if self.path == "/v2/repository/index":
+                    doc = json.loads(body or b"{}")
+                    if not isinstance(doc, dict):
+                        raise ValueError("body must be a JSON object")
+                    ready_only = bool(doc.get("ready", False))
+                    rows = [
+                        {"name": r["name"], "version": r["version"],
+                         "state": r["state"], "reason": ""}
+                        for r in app.registry.index()
+                        if not ready_only or r["state"] == "READY"
+                    ]
+                    self._send_json(rows)
+                    return
+                prefix = "/v2/repository/models/"
+                if not self.path.startswith(prefix):
+                    self._send_json({"detail": "Not Found"}, 404)
+                    return
+                parts = self.path[len(prefix):].split("/")
+                if len(parts) != 2 or parts[1] not in ("load", "unload"):
+                    self._send_json({"detail": "Not Found"}, 404)
+                    return
+                name, action = parts
+                # Triton's extension body: {"parameters":
+                # {"unload_dependents": true}} on unload
+                params = {}
+                if body:
+                    doc = json.loads(body)
+                    if not isinstance(doc, dict):
+                        raise ValueError("body must be a JSON object")
+                    params = doc.get("parameters", {}) or {}
+                    if not isinstance(params, dict):
+                        raise ValueError("parameters must be an object")
+                try:
+                    if action == "load":
+                        app.registry.load(name)
+                    else:
+                        app.registry.unload(
+                            name,
+                            unload_dependents=bool(
+                                params.get("unload_dependents", False)
+                            ),
+                        )
+                except KeyError as e:
+                    # Triton's extension reports failures as 400 +
+                    # {"error": ...}, including unknown model names
+                    self._send_json({"error": str(e)}, 400)
+                    return
+                self._send_json({})
+            except (ValueError, json.JSONDecodeError) as e:
+                self._send_json({"error": str(e)}, 400)
+
+        def _v2_infer(self):
+            """POST /v2/models/<name>[/versions/<v>]/infer — the KServe-v2
+            HTTP inference protocol, the HTTP mirror of the gRPC ModelInfer
+            RPC. Two tensor transports, exactly Triton's:
+
+            - JSON tensors: each input carries row-major values in `data`.
+            - The binary_tensor_data extension (what tritonclient's HTTP
+              path uses by default): `Inference-Header-Content-Length: J`
+              marks the first J body bytes as the JSON header; the rest is
+              raw little-endian tensor bytes, concatenated in `inputs`
+              order for every input declaring
+              `parameters.binary_data_size`. Outputs come back binary when
+              the request sets per-output `parameters.binary_data` or the
+              request-level `parameters.binary_data_output`; the response
+              then carries the same header + trailing bytes in `outputs`
+              order.
+
+            KServe error contract: {"error": ...} with 400/404 (always
+            pure JSON)."""
+            length = int(self.headers.get("Content-Length", "0"))
+            body = self.rfile.read(length)
+            name, version, rest = _model_path(self.path)
+            if rest != ["infer"]:
+                self._send_json({"detail": "Not Found"}, 404)
+                return
+            try:
+                json_len = self.headers.get(
+                    "Inference-Header-Content-Length"
+                )
+                blob = b""
+                if json_len is not None:
+                    json_len = int(json_len)
+                    if not 0 <= json_len <= len(body):
+                        raise ValueError(
+                            "Inference-Header-Content-Length "
+                            f"{json_len} outside body ({len(body)} bytes)"
+                        )
+                    body, blob = body[:json_len], body[json_len:]
+                doc = json.loads(body)
+                inputs = {}
+                cursor = 0
+                for t in doc.get("inputs", []):
+                    dt = t["datatype"]
+                    if dt not in TRITON_TO_NP:
+                        raise ValueError(f"unsupported datatype '{dt}'")
+                    dtype = np.dtype(TRITON_TO_NP[dt]).newbyteorder("<")
+                    nbin = (t.get("parameters") or {}).get(
+                        "binary_data_size"
+                    )
+                    if nbin is not None:
+                        # binary transport: consume this input's slice of
+                        # the trailing bytes (strict sizing, like Triton)
+                        want = int(np.prod(t["shape"], dtype=np.int64)
+                                   ) * dtype.itemsize
+                        if int(nbin) != want:
+                            raise ValueError(
+                                f"input '{t['name']}': binary_data_size "
+                                f"{nbin} != shape {t['shape']} x "
+                                f"{dt} = {want} bytes"
+                            )
+                        if cursor + want > len(blob):
+                            raise ValueError(
+                                f"input '{t['name']}': binary payload "
+                                "truncated (need "
+                                f"{cursor + want - len(blob)} more bytes; "
+                                "is Inference-Header-Content-Length set?)"
+                            )
+                        inputs[t["name"]] = np.frombuffer(
+                            blob, dtype=dtype, count=want // dtype.itemsize,
+                            offset=cursor,
+                        ).reshape(t["shape"])
+                        cursor += want
+                    else:
+                        inputs[t["name"]] = np.asarray(
+                            t["data"], dtype=dtype
+                        ).reshape(t["shape"])
+                if cursor != len(blob):
+                    raise ValueError(
+                        f"{len(blob) - cursor} trailing binary bytes not "
+                        "claimed by any input's binary_data_size"
+                    )
+                out_specs = doc.get("outputs", [])
+                out_names = [o["name"] for o in out_specs] or None
+                # per-output binary_data, defaulted by the request-level
+                # binary_data_output parameter (both are Triton's)
+                bin_default = bool((doc.get("parameters") or {}).get(
+                    "binary_data_output", False
+                ))
+                bin_out = {
+                    o["name"]: bool((o.get("parameters") or {}).get(
+                        "binary_data", bin_default
+                    ))
+                    for o in out_specs
+                }
+                # Triton's classification extension: per-output
+                # parameters.classification = k replaces the tensor with
+                # top-k "value:index" BYTES strings
+                class_counts = {
+                    o["name"]: int(
+                        (o.get("parameters") or {}).get("classification", 0)
+                    )
+                    for o in out_specs
+                    if (o.get("parameters") or {}).get("classification")
+                }
+            except (KeyError, TypeError, ValueError,
+                    json.JSONDecodeError) as e:
+                self._send_json({"error": f"malformed request: {e}"}, 400)
+                return
+            try:
+                out = app.registry.infer(
+                    name, inputs, out_names, version=version
+                )
+            except KeyError as e:
+                self._send_json({"error": str(e)}, 404)
+                return
+            except ValueError as e:
+                self._send_json({"error": str(e)}, 400)
+                return
+            tensors, chunks = [], []
+            for k, v in out.items():
+                if k in class_counts and class_counts[k] > 0:
+                    rows = _classification_rows(v, class_counts[k])
+                    if bin_out.get(k, bin_default):
+                        raw = serialize_bytes_tensor(
+                            [b for b in rows.ravel()]
+                        )
+                        chunks.append(raw)
+                        tensors.append(
+                            {"name": k, "shape": list(rows.shape),
+                             "datatype": "BYTES",
+                             "parameters": {"binary_data_size": len(raw)}}
+                        )
+                    else:
+                        tensors.append(
+                            {"name": k, "shape": list(rows.shape),
+                             "datatype": "BYTES",
+                             "data": [b.decode() for b in rows.ravel()]}
+                        )
+                elif bin_out.get(k, bin_default):
+                    raw = np.ascontiguousarray(v).astype(
+                        v.dtype.newbyteorder("<"), copy=False
+                    ).tobytes()
+                    chunks.append(raw)
+                    tensors.append(
+                        {"name": k, "shape": list(v.shape),
+                         "datatype": NP_TO_TRITON[v.dtype],
+                         "parameters": {"binary_data_size": len(raw)}}
+                    )
+                else:
+                    tensors.append(
+                        {"name": k, "shape": list(v.shape),
+                         "datatype": NP_TO_TRITON[v.dtype],
+                         "data": v.ravel().tolist()}
+                    )
+            reply = {"model_name": name, "model_version": "1",
+                     "outputs": tensors}
+            if not chunks:
+                self._send_json(reply)
+                return
+            header = json.dumps(reply).encode()
+            payload = header + b"".join(chunks)
+            self.send_response(200)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Inference-Header-Content-Length",
+                             str(len(header)))
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
         def do_POST(self):
             routes = {
                 "/body_proportion_length_estimation_file":
@@ -523,8 +836,15 @@ def make_handler(app: ServingApp):
                 "/body_proportion_length_estimation_video_stream"
             handler = routes.get(self.path)
             if handler is None and not stream:
+                if (self.path.startswith("/v2/models/")
+                        and self.path.endswith("/infer")):
+                    self._v2_infer()
+                    return
                 if self.path in ("/v2/logging", "/v2/trace/setting"):
                     self._v2_settings_update()
+                    return
+                if self.path.startswith("/v2/repository/"):
+                    self._v2_repository()
                     return
                 self._send_json({"detail": "Not Found"}, 404)
                 return
@@ -565,8 +885,6 @@ def create_server(app: ServingApp, host: str, port: int) -> ThreadingHTTPServer:
 # options of the JAX server that the port does not serve yet, and the
 # ROADMAP.md item that brings each
 _NOT_YET = (
-    ("grpc_port", "--grpc-port", "item 9 (slice 5: gRPC and the model "
-                                 "registry)"),
     ("artifact_dir", "--artifact-dir", "item 16 (the deployable artifact)"),
     ("data_parallel", "--data-parallel", "item 16 (multi-device serving)"),
     ("bottom_up", "--bottom-up", "item 13 (bottom-up pose)"),
@@ -582,9 +900,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8080)
-    parser.add_argument("--grpc-port", type=int, default=0,
-                        help="gRPC endpoint port (0 disables); the port has "
-                             "no gRPC edge yet, so anything else exits")
+    parser.add_argument("--grpc-port", type=int, default=8081,
+                        help="gRPC endpoint port (0 disables): the hbpe "
+                             "service and the stock KServe service; the "
+                             "reference exposes Triton gRPC on 8081")
     parser.add_argument(
         "--detector", default="efficientdet_lite4",
         choices=["efficientdet_lite4", "efficientdet_lite0",
@@ -629,6 +948,19 @@ def main(argv=None):
     if args.detector != "efficientdet_lite4":
         parser.error(f"--detector {args.detector} is not ported yet: "
                      "ROADMAP.md items 10-12 (slice 6: the other slots)")
+    if args.grpc_port:
+        # before any model is built: a server asked for gRPC never serves
+        # HTTP alone without saying so
+        try:
+            import grpc  # noqa: F401
+
+            from human_body_proportion_estimation_tpu_torch.serve import (  # noqa: F401,E501
+                grpc_server,
+            )
+        except ImportError as e:
+            parser.error(f"--grpc-port {args.grpc_port}: the gRPC edge "
+                         f"cannot start ({e}); pass --grpc-port 0 to serve "
+                         "HTTP alone")
 
     from human_body_proportion_estimation_tpu_torch.models.weights import (
         default_certified_checkpoint,
@@ -656,6 +988,17 @@ def _serve(args, pipeline):
               f"in {time.time() - t0:.1f}s", flush=True)
     app = ServingApp(pipeline)
     server = create_server(app, args.host, args.port)
+    grpc_server = None
+    if args.grpc_port:
+        from human_body_proportion_estimation_tpu_torch.serve.grpc_server import (  # noqa: E501
+            create_grpc_server,
+        )
+
+        grpc_server, bound = create_grpc_server(app, args.host,
+                                                args.grpc_port)
+        grpc_server.start()
+        log.info("grpc_listening", host=args.host, port=bound)
+        print(f"grpc on {args.host}:{bound}", flush=True)
     log.info("http_listening", host=args.host, port=args.port,
              engine="native" if app.native else "python",
              detector=args.detector)
@@ -665,6 +1008,8 @@ def _serve(args, pipeline):
     except KeyboardInterrupt:
         pass
     finally:
+        if grpc_server is not None:
+            grpc_server.stop(0)
         app.shutdown()
 
 

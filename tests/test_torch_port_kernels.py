@@ -420,6 +420,28 @@ def test_nms_shared_cases_cover_what_they_name():
     assert expected[0, [0, 40, 80]].tolist() == [True, False, True]
 
 
+def test_nms_class_offset_case_covers_what_it_names():
+    """The class-offset case: coordinates in the 1e5 range, equal raw boxes
+    of two classes that the shift keeps apart, boxes of one class
+    suppressing each other, and the pair that overlaps across the shift."""
+    from human_body_proportion_estimation_tpu_torch.ops.boxes import box_iou
+    from tests.torch_port_nms_cases import MAX_WH, class_offset
+
+    boxes, scores, classes = class_offset()
+    assert boxes.max() > 3.6e5 and len(set(classes.tolist())) >= 6
+    tb = torch.from_numpy(boxes)
+    keep = kernels.nms_sweep(tb, torch.from_numpy(scores), 0.5).numpy()[0]
+    raw = boxes[0] - classes[:, None] * MAX_WH
+    np.testing.assert_allclose(raw[3::2], raw[2::2], atol=2 ** -4)  # f32 at 1e5
+    iou = box_iou(tb, tb)[0].numpy()
+    k = len(classes)
+    assert (iou[np.arange(2, k, 2), np.arange(3, k, 2)] == 0).all()
+    assert iou[0, 1] > 0.5 and keep[0] and not keep[1]   # across the shift
+    live = scores[0] > 0
+    assert keep[live].sum() < live.sum() - 1             # inside a class
+    assert keep[3::2][keep[2::2] & live[3::2]].mean() > 0.5
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     kernels.reset_launch_counts()
     kernels.decode_heatmaps(torch.zeros((1, 17, 8, 8)))

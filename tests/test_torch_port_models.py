@@ -142,12 +142,31 @@ def edet_pair():
     tm.load_state_dict(flax_to_state_dict(variables), strict=True)
     with torch.no_grad():
         got = [t.numpy() for t in tm(torch.from_numpy(imgs))]
-    return ref, got
+    return ref, got, (jcfg, variables, imgs, tm)
+
+
+def test_efficientdet_tiny_all_classes_head_matches_flax(edet_pair,
+                                                         monkeypatch):
+    """The canonical head (flax `score_kernel=False`, the registry's
+    detector path) on the same module and parameters: all 90 class logits
+    through the f32 predict conv, 1e-4 as the box head; no head-score
+    launch."""
+    jcfg, variables, imgs, tm = edet_pair[2]
+    jm = jedet.EfficientDet(config=jcfg, dtype=jnp.float32)
+    ref_cls, ref_box = jax.jit(jm.apply)(variables, jnp.asarray(imgs))
+    monkeypatch.setattr(kernels, "head_score_levels", None)
+    with torch.no_grad():
+        cls, box = tm(torch.from_numpy(imgs), all_classes=True)
+    assert cls.shape == ref_cls.shape and cls.shape[-1] == jcfg.num_classes
+    np.testing.assert_allclose(cls.numpy(), np.asarray(ref_cls), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(box.numpy(), np.asarray(ref_box), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_efficientdet_tiny_box_head_matches_flax(edet_pair):
     """Box regressions: f32 end to end on both sides, 1e-4."""
-    (_, _, ref_box), (_, _, got_box) = edet_pair
+    (_, _, ref_box), (_, _, got_box), _ = edet_pair
     assert got_box.shape == ref_box.shape
     np.testing.assert_allclose(got_box, ref_box, rtol=1e-4, atol=1e-4)
 
@@ -158,7 +177,7 @@ def test_efficientdet_tiny_scores_match_flax(edet_pair):
     bf16 rounding (a 2^-8 relative step of one input to a 64-term sum).
     Tolerance 2e-2 abs on logits of magnitude ~1; most entries agree to
     1e-5."""
-    (ref_best, ref_person, _), (got_best, got_person, _) = edet_pair
+    (ref_best, ref_person, _), (got_best, got_person, _), _ = edet_pair
     assert got_best.shape == ref_best.shape
     np.testing.assert_allclose(got_best, ref_best, atol=2e-2)
     np.testing.assert_allclose(got_person, ref_person, atol=2e-2)

@@ -190,3 +190,111 @@ def test_select_persons_matches_with_ties():
             jnp.float32(thres[i]), 1, 3)
         for g, r in zip(got, ref):
             np.testing.assert_array_equal(g[i].numpy(), np.asarray(r))
+
+
+def _nms_fixed_inputs(seed, n, n_classes=6):
+    rng = np.random.default_rng(seed)
+    boxes = _random_xyxy(rng, n, hi=200.0)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    scores[rng.uniform(0, 1, n) < 0.2] = 0.0            # dead candidates
+    scores[5:9] = scores[4]                              # ties
+    classes = rng.integers(0, n_classes, n).astype(np.float32)
+    return boxes, scores, classes
+
+
+@pytest.mark.parametrize("n_classes,top_k,max_det", [
+    (1, 64, 100), (6, 64, 100), (6, 128, 40), (6, 256, 300),
+], ids=["one_class", "per_class", "max_det_below_k", "top_k_above_n"])
+def test_nms_fixed_matches_jax(n_classes, top_k, max_det):
+    """Exact: the same stable top-k (the lower index first among equal
+    scores, as `jax.lax.top_k`), the same class offset, keep mask and
+    compaction, padded slots zeroed."""
+    boxes, scores, classes = _nms_fixed_inputs(8, 200, n_classes)
+    ref = jnms.nms_fixed(jnp.asarray(boxes), jnp.asarray(scores), 0.45,
+                         max_det=max_det, top_k=top_k,
+                         classes=jnp.asarray(classes),
+                         class_agnostic=False)
+    got = tnms.nms_fixed(_t(boxes), _t(scores), _t(classes), 0.45,
+                         max_det=max_det, top_k=top_k)
+    assert type(got).__name__ == "NmsResult" and got._fields == ref._fields
+    for name, g, r in zip(got._fields, got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), name)
+    assert got.valid.sum() > 10
+    assert tnms.MAX_WH == jnms.MAX_WH
+
+
+def test_nms_fixed_one_class_is_class_agnostic():
+    """With every box in class 0 the class offset moves nothing: the
+    result equals the JAX package's class-agnostic `nms_fixed`."""
+    boxes, scores, _ = _nms_fixed_inputs(9, 50)
+    ref = jnms.nms_fixed(jnp.asarray(boxes), jnp.asarray(scores), 0.5,
+                         max_det=60, top_k=32)
+    got = tnms.nms_fixed(_t(boxes), _t(scores), torch.zeros(50), 0.5,
+                         max_det=60, top_k=32)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def _postprocess_inputs(seed, hw=(128, 96), num_classes=90):
+    rng = np.random.default_rng(seed)
+    n = len(janchors.generate_anchors(janchors.AnchorConfig(), *hw))
+    logits = rng.normal(-3.0, 1.5, (n, num_classes)).astype(np.float32)
+    logits[::7, 0] += 4.0                               # person candidates
+    regs = rng.normal(0, 0.3, (n, 4)).astype(np.float32)
+    return logits, regs
+
+
+@pytest.mark.parametrize("score_threshold", [0.0, 0.3])
+def test_postprocess_prescored_matches_jax(score_threshold):
+    """The canonical all-class postprocess of one image: decode, clip,
+    class-wise `nms_fixed` over the top 128, 1-based classes. Scores and
+    classes exact, boxes to 1e-4 (exp() may differ by an ulp between XLA
+    and ATen, as in test_decode_boxes_matches)."""
+    from human_body_proportion_estimation_tpu.models import (
+        efficientdet as jedet,
+    )
+    from human_body_proportion_estimation_tpu_torch.models import (
+        efficientdet as tedet,
+    )
+
+    hw = (128, 96)
+    logits, regs = _postprocess_inputs(1, hw)
+    best, cls = logits.max(-1), logits.argmax(-1)
+    ref = jedet.postprocess_prescored(
+        jnp.asarray(best), jnp.asarray(cls), jnp.asarray(regs), hw,
+        score_threshold=score_threshold, iou_threshold=0.5, top_k=128)
+    got = tedet.postprocess_prescored(
+        _t(best), _t(cls), _t(regs), hw, score_threshold=score_threshold,
+        iou_threshold=0.5, top_k=128)
+    boxes, scores, classes, valid = (g.numpy() for g in got)
+    np.testing.assert_array_equal(valid, np.asarray(ref[3]))
+    np.testing.assert_array_equal(classes, np.asarray(ref[2]))
+    np.testing.assert_array_equal(scores, np.asarray(ref[1]))
+    np.testing.assert_allclose(boxes, np.asarray(ref[0]), rtol=1e-5,
+                               atol=1e-4)
+    assert boxes.shape == (100, 4) and valid.sum() > 10
+    assert set(classes[valid].tolist()) <= set(range(1, 91))
+    assert (np.diff(scores) <= 0).all() and (classes[~valid] == 0).all()
+    assert boxes[:, [0, 2]].max() <= hw[0] and boxes[:, [1, 3]].max() <= hw[1]
+
+
+def test_postprocess_from_logits_matches_jax():
+    """`postprocess` takes the class max and argmax of the logits (the
+    lower class among equal logits) over the given anchors."""
+    from human_body_proportion_estimation_tpu.models import (
+        efficientdet as jedet,
+    )
+    from human_body_proportion_estimation_tpu_torch.models import (
+        efficientdet as tedet,
+    )
+
+    hw = (128, 96)
+    logits, regs = _postprocess_inputs(2, hw)
+    logits[3, 5] = logits[3, 9] = logits[3].max() + 1.0      # a class tie
+    ref = jedet.postprocess(jnp.asarray(logits), jnp.asarray(regs), hw,
+                            top_k=128)
+    anchors = _t(tanchors.generate_anchors(tanchors.AnchorConfig(), *hw))
+    got = tedet.postprocess(_t(logits), _t(regs), hw, anchors, top_k=128)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5,
+                                   atol=1e-4 if i == 0 else 0)

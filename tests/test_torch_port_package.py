@@ -1,5 +1,6 @@
 """Package-level guarantees of the port: it imports without JAX, flax or the
-JAX package; the committed certified checkpoint converts into the
+JAX package, and its HTTP edge and registry without grpc or protobuf; the
+committed certified checkpoint converts into the
 full-width port models with every tensor placed; entry points default to
 CUDA and do not fall back to the CPU."""
 
@@ -22,7 +23,11 @@ import human_body_proportion_estimation_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 36, names
+assert len(names) >= 44, names
+for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
+             "serve.hbpe_pb2", "serve.kserve_pb2", "serve.wire",
+             "serve.client", "serve.perf"):
+    assert port.__name__ + "." + name in names, name
 import chip_smoke
 assert not [m for m in sys.modules if m.startswith(("jax", "flax"))
             and sys.modules[m] is not None]
@@ -35,6 +40,34 @@ def test_port_imports_without_jax():
     every module of the port and chip_smoke.py import."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+_NO_PROTOBUF_IMPORT = r"""
+import sys
+for name in ("grpc", "google.protobuf", "jax", "flax",
+             "human_body_proportion_estimation_tpu"):
+    sys.modules[name] = None
+from human_body_proportion_estimation_tpu_torch.serve import (
+    client, registry, server, wire)
+reg = registry.build_registry(device="cpu")
+assert len(reg.names()) == 4, reg.names()
+loaded = [m for m in sys.modules if sys.modules[m] is not None and (
+    m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))]
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_http_edge_and_registry_import_without_grpc_or_protobuf():
+    """With grpc and google.protobuf blocked, the registry, the HTTP server
+    and its client import (and the registry builds): the HTTP /v2 routes do
+    not need the gRPC packages."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_PROTOBUF_IMPORT], cwd=REPO,
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr

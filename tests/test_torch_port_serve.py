@@ -15,7 +15,9 @@ crop divergence, ROADMAP.md section 3).
 Also here: both batchers' semantics as one parametrised test each, the
 native core's build location, `parse_multipart`, `StageTimer`, the
 logging and trace settings documents, the OpenAPI document and the
-server's `main` exits.
+server's `main` exits. The registry's `/v2` routes and the gRPC edge are
+held against the JAX package's in tests/test_torch_port_registry.py and
+tests/test_torch_port_grpc.py.
 """
 
 import http.client
@@ -232,16 +234,6 @@ def test_simple_routes_match_jax(servers, method, path):
     assert json.loads(got[1]) == json.loads(ref[1])
 
 
-@pytest.mark.parametrize("method,path", [
-    ("GET", "/v2/models"), ("GET", "/v2/models/hrnet"),
-    ("POST", "/v2/models/hrnet/infer"), ("POST", "/v2/repository/index"),
-])
-def test_registry_routes_not_found_until_ported(servers, method, path):
-    status, data = request(servers["port"], method, path, b"{}",
-                           "application/json")
-    assert (status, json.loads(data)) == (404, {"detail": "Not Found"})
-
-
 def test_file_route_matches_jax(servers):
     img = images()[0]
     body, ctype = multipart({
@@ -392,14 +384,14 @@ def test_settings_documents_match_jax(servers, tmp_path, monkeypatch):
 
 
 def test_openapi_is_the_jax_document_less_the_registry(servers):
+    """Since the registry's routes were ported: the JAX document itself,
+    its 9 registry paths included."""
     (s_ref, ref), (s_got, got) = both(
         servers, lambda p: get_json(p, "/openapi.json"))
     assert s_got == s_ref == 200
-    registry = [p for p in ref["paths"]
+    registry = [p for p in got["paths"]
                 if p.startswith(("/v2/models", "/v2/repository"))]
     assert len(registry) == 9
-    for p in registry:
-        del ref["paths"][p]
     assert got == ref
     status, html = request(servers["port"], "GET", "/docs")
     assert status == 200 and b"/openapi.json" in html
@@ -408,8 +400,8 @@ def test_openapi_is_the_jax_document_less_the_registry(servers):
 def test_v2_metadata_lists_served_extensions(servers):
     (_, ref), (status, got) = both(servers, lambda p: get_json(p, "/v2"))
     assert status == 200 and list(got) == list(ref)
-    assert got["extensions"] == ["health", "logging", "trace"]
-    assert set(got["extensions"]) < set(ref["extensions"])
+    assert got["extensions"] == ref["extensions"]
+    assert got["name"] == "human_body_proportion_estimation_tpu_torch"
 
 
 def test_metrics_stages_and_health_keys(servers):
@@ -604,7 +596,7 @@ def test_stage_timer_snapshot_matches_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--grpc-port", "8081"], ["--bottom-up"], ["--artifact-dir", "x"],
+    ["--bottom-up"], ["--artifact-dir", "x"],
     ["--data-parallel", "2"], ["--detector", "ssd_mobilenet"],
     ["--checkpoint-dir", "x"],
 ])

@@ -74,6 +74,35 @@ def cross_block_chain(k=96):
     return boxes[None].astype(np.float32), scores[None], expected[None]
 
 
+MAX_WH = 4096.0       # the class offset of ops/nms.nms_fixed
+
+
+def class_offset(seed=41, k=128):
+    """Candidates as the canonical postprocess's `nms_fixed` sweeps them:
+    pixel boxes of several classes (up to class 89) shifted by
+    class * 4096, coordinates up to ~3.7e5, where f32 steps by 1/32.
+    Boxes overlap inside a class (jittered clusters); box 2j + 1 is box 2j
+    of another class, so that equal raw boxes lie 4096 * n apart and never
+    suppress each other; boxes 0 and 1 overlap across the shift (the offset moves x and
+    y: box 0, class 1, reaches past (4096, 4096) into class 2's range, IoU
+    0.592 with box 1, class 2).
+    Returns (boxes [1, K, 4], scores [1, K], classes [K])."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform([40, 40], [600, 440], (12, 2))
+    at = centers[rng.integers(0, 12, k)] + rng.normal(0, 6, (k, 2))
+    half = rng.uniform(15, 60, (k, 2))
+    raw = np.concatenate([at - half, at + half], -1)
+    raw[1::2] = raw[0::2]
+    classes = rng.choice([0, 1, 2, 37, 88, 89], k).astype(np.float32)
+    classes[1::2] = np.where(classes[0::2] == 89, 88, classes[0::2] + 1)
+    raw[0], classes[0] = [4066, 4066, 4196, 4196], 1
+    raw[1], classes[1] = [0, 0, 100, 100], 2
+    boxes = (raw + classes[:, None] * MAX_WH).astype(np.float32)
+    scores = -np.sort(-rng.uniform(0.05, 1, k).astype(np.float32))
+    scores[-5:] = 0.0
+    return boxes[None], scores[None], classes
+
+
 def nms_cases():
     """Every case as (name, boxes, scores, threshold, expected or None)."""
     cases = []
@@ -105,4 +134,6 @@ def nms_cases():
     boxes[1, :, :2] = boxes[1, :1, :2]
     cases.append(("zero-area boxes", boxes, scores, 0.5,
                   np.ones(scores.shape, bool)))
+    boxes, scores, _ = class_offset()
+    cases.append(("class-offset boxes", boxes, scores, 0.5, None))
     return cases
