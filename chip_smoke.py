@@ -21,10 +21,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at the main path's shapes — heatmap decode [48,17,96,72] with
      planted ties, all-negative rows and NaN maps (exact, NaN-aware), NMS
-     sweep [16,128] at t = 0.5 and 0.3 with an at-threshold pair, then the
-     cases of tests/torch_port_nms_cases.py (NaN and infinite boxes, K from
-     1 to 256, B = 1, dead, identical and zero-area boxes, a chain across
-     three 32-box blocks; all exact),
+     sweep [16,128] at t = 0.5 and 0.3 with an at-threshold pair, [16,512],
+     [1,512] and a ladder of 512 boxes, the +1-pixel IoU variant at
+     [1,512], [16,128] and on the ladder, then the cases of
+     tests/torch_port_nms_cases.py under both IoU forms (NaN and infinite
+     boxes, K from 1 to 512, B = 1, dead, identical and zero-area boxes, a
+     chain across three 32-box blocks; all exact; K = 513 refused),
      head-score on the five pyramid levels with the certified predict_pw
      weights, at B=16 and B=1, through the grouped one-launch entry point
      and the one-level wrapper (|kernel - plain| <= 1e-3 + 1e-3 |plain|).
@@ -68,7 +70,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      `ServingApp` on 127.0.0.1:0 and, where `grpc` and `google.protobuf`
      import, its gRPC server (hbpe and KServe services) on 127.0.0.1:0;
      without them a line names the missing module and only HTTP is driven.
-     The index and the documents of the 4 models at full width; the
+     The index and the documents of the 6 models at full width; the
      ensemble on the 3 scenes over HTTP binary_tensor_data (and gRPC
      ModelInfer): as many persons as the goldens, boxes within 0.01 of the
      main path's, heatmaps decoded by the decode kernel into cm as the
@@ -83,7 +85,23 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      nms_sweep once and nothing else, hrnet nothing, an Estimate batch
      each kernel once. Prints hrnet requests/s, rows per launch and
      p50/p95 at 16 clients, and the ensemble's ms a request at 1 client.
-  4. report: a `kernels` JSON line (launches: phases 3, A and C), the
+  Y. the YOLOv5 slot, `--detector yolov5m` at full width (YOLOv5m on
+     640x640 letterboxed input, the certified HRNet-W32), with the seeded
+     random weights of tests/data/torch_port/yolo_goldens.json made again
+     on the CPU: `infer_serving` at B=16 on the 3 scenes in f32 with TF32
+     off against the JAX goldens (f32; persons identical, phase 3's cm
+     rule, B=1 boxes within 0.05 px) and in bf16 as the server serves it;
+     the port's CPU path at B=1 against the card's; every keep mask the
+     path gave the NMS kernel against the plain version; launches counted
+     from 0: nms_sweep = decode_heatmaps = forwards, head_score = 0; the
+     server (16 requests from 4 clients, each answer equal to its scene's
+     forward at its batch size, /health "random"); the registry's yolov5m
+     over HTTP and hbpe gRPC with the NMS on the client at top_k 512
+     (official and +1 legacy, against the in-process detect_yolo
+     program); `detect_yolo` in subprocesses (remote -g, default,
+     --legacy-nms); imgs/s at B=16 beside Lite4 and the NMS kernel on the
+     path's own candidates.
+  4. report: a `kernels` JSON line (launches: phases 3, A, C and Y), the
      card's name and power limit, and the result line
      {"ok": true, "device": {...}} last.
 
@@ -270,49 +288,80 @@ def load_nms_cases():
     return module.nms_cases()
 
 
+def ladder_boxes(dev, b, k):
+    """Every box overlaps only its two neighbours, so the kept boxes
+    alternate and each decision hangs on the one before it: the longest
+    chain a sweep can meet."""
+    import torch
+
+    step = 25.0 * torch.arange(k, device=dev)
+    return torch.stack([step, 0 * step, step + 100.0, 0 * step + 100.0],
+                       -1).expand(b, k, 4).contiguous()
+
+
 def check_nms(k, dev):
     import torch
 
-    cases = load_nms_cases()
     boxes, scores = nms_inputs(dev)
-    for t in (0.5, 0.3):
-        got = k.nms_sweep(boxes, scores, t)
-        ref = k.nms_sweep_plain(boxes, scores, t)
-        torch.cuda.synchronize()
-        assert torch.equal(got, ref), f"nms: keep differs from plain at {t}"
-    assert bool(got.any()) and not bool(got.all())
-    # the shared cases: every one is checked before any failure is raised,
-    # and a mask that differs is printed beside the plain version's
-    failed = []
-    for name, c_boxes, c_scores, t, expected in cases:
+    boxes512, scores512 = nms_inputs(dev, k=512, seed=2)
+    ladder512 = ladder_boxes(dev, 16, 512)
+    one = (lambda x: x[3:4].contiguous())
+    checks = [("[16,128]", boxes, scores, t, False) for t in (0.5, 0.3)]
+    checks += [
+        ("[16,512]", boxes512, scores512, 0.5, False),
+        ("[1,512]", one(boxes512), one(scores512), 0.5, False),
+        ("[16,512] ladder", ladder512, scores512, 0.5, False),
+        ("+1 [1,512]", one(boxes512), one(scores512), 0.5, True),
+        ("+1 [16,128]", boxes, scores, 0.5, True),
+        ("+1 [16,128] t=0.3", boxes, scores, 0.3, True),
+        ("+1 [16,512] ladder", ladder512, scores512, 0.4, True),
+    ]
+    # the shared cases, with both IoU forms
+    for name, c_boxes, c_scores, t, expected in load_nms_cases():
         c_boxes = torch.from_numpy(c_boxes).to(dev)
         c_scores = torch.from_numpy(c_scores).to(dev)
-        got = k.nms_sweep(c_boxes, c_scores, t)
-        ref = k.nms_sweep_plain(c_boxes, c_scores, t)
-        torch.cuda.synchronize()
         if expected is not None:
+            ref = k.nms_sweep_plain(c_boxes, c_scores, t)
             assert ref.cpu().numpy().tolist() == expected.tolist(), \
                 f"nms case {name}: the plain version misses the stated mask"
+        for plus1 in (False, True):
+            checks.append((("+1 " if plus1 else "") + name, c_boxes,
+                           c_scores, t, plus1))
+    # every check runs before any failure is raised, and a mask that
+    # differs is printed beside the plain version's
+    failed, n_kept = [], 0
+    for name, c_boxes, c_scores, t, plus1 in checks:
+        got = k.nms_sweep(c_boxes, c_scores, t, plus1=plus1)
+        ref = k.nms_sweep_plain(c_boxes, c_scores, t, plus1=plus1)
+        torch.cuda.synchronize()
+        n_kept += int(ref.sum())
         if not torch.equal(got, ref):
             failed.append(name)
             img = int(torch.nonzero((got != ref).any(-1))[0])
             at = torch.nonzero(got[img] != ref[img]).flatten().tolist()
-            log(f"nms case {name!r} at t = {t}: kernel differs from plain in "
-                f"{int((got != ref).sum())} places; image {img}, boxes {at}")
+            log(f"nms {name!r} at t = {t}: kernel differs from plain in "
+                f"{int((got != ref).sum())} places; image {img}, boxes "
+                f"{at[:16]}")
             if c_boxes.shape[1] <= 8:
                 log(f"  boxes  {c_boxes[img].tolist()}")
                 log(f"  kernel {got[img].tolist()}")
                 log(f"  plain  {ref[img].tolist()}")
-    assert not failed, f"nms: keep differs from plain in cases {failed}"
-    log(f"nms_sweep: {len(cases)} shared cases exact against plain")
+    assert not failed, f"nms: keep differs from plain in {failed}"
+    for keep in (k.nms_sweep(boxes, scores, 0.5),
+                 k.nms_sweep(boxes512, scores512, 0.5, plus1=True)):
+        assert bool(keep.any()) and not bool(keep.all())
+    try:
+        k.nms_sweep(torch.zeros((1, 513, 4), device=dev),
+                    torch.zeros((1, 513), device=dev), 0.5)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("nms_sweep took K = 513")
+    log(f"nms_sweep: {len(checks)} keep masks ({n_kept} boxes kept) exact "
+        "against plain, K = 1..512, both IoU forms; K = 513 refused")
 
     def sweep16():
         k.nms_sweep(boxes, scores, 0.5)
-
-    boxes1, scores1 = boxes[3:4].contiguous(), scores[3:4].contiguous()
-
-    def sweep1():
-        k.nms_sweep(boxes1, scores1, 0.5)
 
     ms = cuda_ms(sweep16, 200)
     plain_ms = cuda_ms(lambda: k.nms_sweep_plain(boxes, scores, 0.5), 3, 1)
@@ -321,17 +370,25 @@ def check_nms(k, dev):
     # 14 operations each
     b_ms, b_by = bound(boxes.numel() * 4 + scores.numel() * 4 + b * kk,
                        14.0 * b * kk * (kk - 1) / 2, F32_FLOP_PER_S)
+    b512, _ = bound(512 * 4 * 4 + 512 * 4 + 512, 14.0 * 512 * 511 / 2,
+                    F32_FLOP_PER_S)
     g_ms = graph_ms(sweep16, 100)
-    line = (f"nms_sweep [16,128]: eager {ms:.4f} ms, graph replay "
-            f"{g_ms:.4f} ms; [1,128]: eager {cuda_ms(sweep1, 200):.4f} ms, "
-            f"graph replay {graph_ms(sweep1, 100):.4f} ms")
-    if hasattr(k, "nms_launch_shape"):
-        blocks, threads = k.nms_launch_shape()
-        e16 = graph_ms(lambda: k.empty_launch(16 * blocks, threads), 100)
-        e1 = graph_ms(lambda: k.empty_launch(blocks, threads), 100)
-        line += ("; an empty kernel of the same launch shape, graph replay: "
-                 f"for 16 images {e16:.4f} ms, for 1 image {e1:.4f} ms")
-    log(line)
+    times = {"[16,128]": g_ms}
+    for name, args in (
+            ("[1,128]", (one(boxes), one(scores), 0.5)),
+            ("[1,512]", (one(boxes512), one(scores512), 0.5)),
+            ("[1,512] +1", (one(boxes512), one(scores512), 0.5, True)),
+            ("[1,512] ladder", (ladder512[:1], one(scores512), 0.5)),
+            ("[16,512]", (boxes512, scores512, 0.5))):
+        times[name] = graph_ms(lambda args=args: k.nms_sweep(*args), 100)
+    blocks, threads = k.nms_launch_shape()
+    times["empty kernel, launch shape of 16 images"] = graph_ms(
+        lambda: k.empty_launch(16 * blocks, threads), 100)
+    times["empty kernel, launch shape of 1 image"] = graph_ms(
+        lambda: k.empty_launch(blocks, threads), 100)
+    log(f"nms_sweep [16,128]: eager {ms:.4f} ms; graph replay (ms): "
+        + ", ".join(f"{n} {v:.4f}" for n, v in times.items())
+        + f"; bound [16,128] {b_ms:.7f} ms, [1,512] {b512:.7f} ms")
     return dict(name="nms_sweep", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 graph_ms=g_ms, library_graph_ms=None)
@@ -487,12 +544,7 @@ def time_kernels(k, dev, det_state, only=""):
             zs, w, bias, a, c, 0), 50))
     boxes, scores = nms_inputs(dev)
     boxes1, scores1 = boxes[3:4].contiguous(), scores[3:4].contiguous()
-    # a ladder: every box overlaps only its two neighbours, so the kept boxes
-    # alternate and each decision hangs on the one before it, the longest
-    # chain a sweep can meet
-    step = 25.0 * torch.arange(128, device=dev)
-    ladder = torch.stack([step, 0 * step, step + 100.0, 0 * step + 100.0],
-                         -1).expand(16, 128, 4).contiguous()
+    ladder = ladder_boxes(dev, 16, 128)
     cases += [
         ("nms_sweep [16,128]", lambda: k.nms_sweep(boxes, scores, 0.5), 200),
         ("nms_sweep [1,128]", lambda: k.nms_sweep(boxes1, scores1, 0.5), 200),
@@ -578,7 +630,7 @@ def run_main_path(k, dev, profile=False):
 
     # the committed certified checkpoint, loaded by the pipeline itself (so
     # that /health labels it as the JAX server does)
-    pipe = InferencePipeline(device=dev)
+    pipe = InferencePipeline(device=dev, detector="efficientdet_lite4")
     images = [decode_image_bytes(bts) for bts in scene_bytes]
     batch16 = [images[i % len(images)] for i in range(16)]
 
@@ -973,8 +1025,10 @@ def run_cli(golden, repo):
 
 
 REGISTRY_MODELS = ["edetlite4", "edetlite4_modified",
-                   "ensemble_edet4_person_det_pose", "hrnet"]
-NOT_PORTED = ["higherhrnet", "ssd_mobilenet", "yolov5m", "yolov5s"]
+                   "ensemble_edet4_person_det_pose", "hrnet", "yolov5m",
+                   "yolov5s"]
+YOLO_MODELS = ["yolov5m", "yolov5s"]
+NOT_PORTED = ["higherhrnet", "ssd_mobilenet"]
 ENSEMBLE = "ensemble_edet4_person_det_pose"
 KERNELS = ("decode_heatmaps", "head_score", "nms_sweep")
 
@@ -1018,9 +1072,9 @@ def recording_nms(k):
     plain version on the same candidates afterwards."""
     seen, launch = [], k.nms_sweep
 
-    def record(boxes, scores, t):
-        keep = launch(boxes, scores, t)
-        seen.append((boxes.clone(), scores.clone(), t, keep.clone()))
+    def record(boxes, scores, t, plus1=False):
+        keep = launch(boxes, scores, t, plus1=plus1)
+        seen.append((boxes.clone(), scores.clone(), t, keep.clone(), plus1))
         return keep
 
     k.nms_sweep = record
@@ -1136,7 +1190,10 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
             # the index and the documents, at full width
             index = http.models()["models"]
             assert [r["name"] for r in index] == REGISTRY_MODELS, index
-            assert all(r["weights"] == "synthetic-certified" for r in index)
+            # no YOLO weights are in the repository: those two are random
+            assert all(r["weights"] == ("random" if r["name"] in YOLO_MODELS
+                                        else "synthetic-certified")
+                       for r in index), index
             assert [r["name"] for r in http.get_model_repository_index()] \
                 == REGISTRY_MODELS
             ch, cw = cfg.pose.crop_height, cfg.pose.crop_width
@@ -1166,7 +1223,8 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
                         t["shape"] for t in meta[n]["outputs"]], n
                     assert hbpe.model_config(n)["max_batch_size"] == \
                         conf[n]["max_batch_size"]
-            log("phase C: index and documents of the 4 models at full width "
+            assert meta["yolov5m"]["outputs"][0]["shape"] == [-1, 25200, 85]
+            log("phase C: index and documents of the 6 models at full width "
                 "agree over " + ", ".join(clients))
 
             # the ensemble on the scenes, against the main path and goldens
@@ -1225,10 +1283,10 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
                     assert counted.last == {"decode_heatmaps": 0,
                                             "head_score": 0,
                                             "nms_sweep": 1}, counted.last
-                for boxes, scores, t, keep in seen:
+                for boxes, scores, t, keep, plus1 in seen:
                     assert boxes.is_cuda and boxes.shape == (
                         1, cfg.detector.nms_top_k, 4), boxes.shape
-                    plain = k.nms_sweep_plain(boxes, scores, t)
+                    plain = k.nms_sweep_plain(boxes, scores, t, plus1)
                     assert torch.equal(keep, plain), (s, keep, plain)
                     n_cases += 1
                 for scores, classes, out_boxes in (
@@ -1374,6 +1432,366 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
     return counted.total
 
 
+# --------------------------------------------------------------------- #
+# phase Y: the YOLOv5 detector slot
+
+
+def yolo_state(golden, images):
+    """The goldens' seeded YOLOv5m weights, made again on this machine's
+    CPU from the seed and biases the file records (a port `state_dict`)."""
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.models.yolo_weights import (  # noqa: E501
+        seeded_state,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
+        YOLOV5M,
+    )
+    from human_body_proportion_estimation_tpu_torch.ops import image as ops
+
+    boxed = ops.letterbox(torch.from_numpy(np.stack(images)).float(), 640,
+                          640)
+    x = (boxed / 255.0).permute(0, 3, 1, 2).numpy()
+    state = seeded_state(YOLOV5M, golden["seed"], x, golden["obj_bias"],
+                         golden["person_bias"])
+    return {key: torch.from_numpy(v) for key, v in state.items()}
+
+
+def check_keep_masks(k, seen, what):
+    """Every keep mask the path's NMS kernel gave against the plain
+    version on the same candidates; returns the (K, plus1) seen."""
+    import torch
+
+    shapes = []
+    for boxes, scores, t, keep, plus1 in seen:
+        assert boxes.is_cuda, what
+        plain = k.nms_sweep_plain(boxes, scores, t, plus1)
+        assert torch.equal(keep, plain), (what, boxes.shape, plus1)
+        shapes.append((tuple(boxes.shape[:2]), plus1))
+    return shapes
+
+
+def check_yolo_golden(packed, golden, what):
+    """The first rows of `packed` against the YOLO goldens: identical person
+    validity, phase 3's cm rule on the segments visible in both. Returns
+    the comparison's figures."""
+    import numpy as np
+
+    ref = np.asarray(golden["packed"], np.float32)
+    got = packed[: len(ref)]
+    assert np.array_equal(got[..., 0] > 0.5, ref[..., 0] > 0.5), \
+        f"{what}: person_valid {got[..., 0]} vs {ref[..., 0]}"
+    vis_got, vis_ref = got[..., 12:] > 0.5, ref[..., 12:] > 0.5
+    both = vis_got & vis_ref
+    d = np.abs(got[..., 1:12] - ref[..., 1:12])[both]
+    figures = dict(persons=int((ref[..., 0] > 0.5).sum()),
+                   segments_both=int(both.sum()),
+                   visibility_mismatch=int((vis_got != vis_ref).sum()),
+                   max_abs_cm=float(d.max()), mean_abs_cm=float(d.mean()))
+    assert both.sum() > 0, what
+    assert d.mean() <= GOLDEN_MEAN_CM and d.max() <= GOLDEN_MAX_CM, \
+        (what, figures)
+    return figures
+
+
+def imgs_per_s(pipe, batch, height, thres, iters=8):
+    import torch
+
+    for _ in range(2):
+        pipe.infer_serving(batch, height, thres)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pipe.infer_serving(batch, height, thres)
+    return len(batch) * iters / (time.perf_counter() - t0)
+
+
+def detect_yolo_cli(repo, image, extra):
+    """`cli.detect_yolo` in a subprocess (started, not waited for)."""
+    return subprocess.Popen(
+        [sys.executable, "-m",
+         "human_body_proportion_estimation_tpu_torch.cli.detect_yolo",
+         "-i", image, "-o", "", "--model", "yolov5m", *extra],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_detections(proc, what):
+    import re
+
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, (what, err[-4000:])
+    counts = re.findall(r"^frame 0: (\d+) detections$", out, re.M)
+    assert len(counts) == 1, (what, out[-2000:])
+    return int(counts[0])
+
+
+def run_yolo(k, dev, lite4_pipe, repo):
+    """Phase Y: `--detector yolov5m` on the card. Returns the launches of
+    the path's forwards and requests (comparisons excluded)."""
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.ops import (
+        nms as nms_ops,
+        proportions as prop_ops,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.detect import (
+        YoloDetectPipeline,
+        letterbox_host,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        InferencePipeline,
+        decode_image_bytes,
+        prewarm_serving,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve import (
+        server as srv,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.client import (
+        HttpClient,
+    )
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(DATA, "yolo_goldens.json")) as fh:
+        golden = json.load(fh)
+    paths = [os.path.join(DATA, name) for name in golden["scenes"]]
+    scene_bytes = []
+    for path in paths:
+        with open(path, "rb") as fh:
+            scene_bytes.append(fh.read())
+    images = [decode_image_bytes(b) for b in scene_bytes]
+    n = len(images)
+    height, thres = golden["person_height_cm"], golden["det_threshold"]
+    batch16 = [images[i % n] for i in range(16)]
+
+    # 1. the weights: the goldens' seeded YOLOv5m, made here on the CPU
+    t0 = time.perf_counter()
+    state = yolo_state(golden, images)
+    log(f"phase Y: seeded YOLOv5m (seed {golden['seed']}, objectness bias "
+        f"{golden['obj_bias']}, person bias {golden['person_bias']}) made "
+        f"on the CPU in {time.perf_counter() - t0:.1f} s")
+    # the golden configuration: f32 with TF32 off, as the JAX goldens; and
+    # the served one, as `server --detector yolov5m` builds it (bf16, the
+    # certified HRNet-W32, the detector at random and labelled so), with
+    # the goldens' random weights in place of its own
+    pipe32 = InferencePipeline(det_state=state, device=dev,
+                               dtype=torch.float32, detector="yolov5m")
+    args = srv.build_parser().parse_args(["--detector", "yolov5m"])
+    spipe = srv.build_pipeline(args)
+    assert spipe.weights_origin == {"detector": "random",
+                                    "pose": "synthetic-certified"}, \
+        spipe.weights_origin
+    spipe.backend.model.load_state_dict(state, strict=True)
+    counted = Counted(k)
+
+    # 2. the serving forwards, their keep masks and launch counts
+    with recording_nms(k) as seen:
+        with counted:
+            packed32 = pipe32.infer_serving(batch16, height, thres)
+            outs32 = [pipe32.infer_images([img], height, thres)
+                      for img in images]
+            packed16 = spipe.infer_serving(batch16, height, thres)
+    forwards = 2 + n
+    assert counted.last == {"decode_heatmaps": forwards, "head_score": 0,
+                            "nms_sweep": forwards}, counted.last
+    shapes = check_keep_masks(k, seen, "serving forwards")
+    assert sorted(shapes) == sorted(
+        [((16, 128), False)] * 2 + [((1, 128), False)] * n), shapes
+    path_boxes, path_scores = seen[0][0], seen[0][1]
+    log(f"phase Y: {forwards} forwards, launches {counted.last} (one sweep "
+        f"a forward over the batch); the {len(seen)} keep masks equal the "
+        "plain version's")
+    assert packed32.shape == packed16.shape == (16, 3, 23)
+    assert np.isfinite(packed32).all() and np.isfinite(packed16).all()
+    for i in range(16):
+        np.testing.assert_array_equal(packed32[i], packed32[i % n])
+    f32 = check_yolo_golden(packed32, golden, "f32 serving forward")
+    boxes = np.concatenate([o.boxes_orig for o in outs32])
+    scores = np.concatenate([o.det_scores for o in outs32])
+    valid = np.asarray(golden["person_valid"])
+    box_err = float(np.abs(boxes - np.asarray(golden["boxes_orig_yxyx"]))
+                    [valid].max())
+    score_err = float(np.abs(scores - np.asarray(golden["det_scores"]))
+                      [valid].max())
+    assert box_err <= 0.05 and score_err <= 1e-4, (box_err, score_err)
+    log(f"phase Y: f32 (TF32 off) serving forward at B=16 vs the JAX goldens "
+        f"(f32): persons identical, {json.dumps(f32)}; B=1 person boxes "
+        f"within {box_err:.3g} px, scores within {score_err:.3g}")
+    bf16_valid = int(((packed16[:n, :, 0] > 0.5)
+                      == (np.asarray(golden["packed"])[..., 0] > 0.5)).all())
+    log(f"phase Y: the bf16 serving forward (not held to the goldens: the "
+        f"seeded network amplifies bf16 rounding) finds the goldens' persons: "
+        f"{bool(bf16_valid)}")
+
+    # 3. the port's own CPU path, B=1, the same weights
+    cpu = InferencePipeline(det_state=state, device="cpu",
+                            dtype=torch.float32, detector="yolov5m")
+    cpu_packed = np.concatenate([cpu.infer_serving([img], height, thres)
+                                 for img in images])
+    card_packed = np.concatenate([pipe32.infer_serving([img], height, thres)
+                                  for img in images])
+    cpu_cmp = check_yolo_golden(cpu_packed, dict(
+        golden, packed=card_packed.tolist()), "CPU vs card at B=1")
+    log(f"phase Y: the CPU path at B=1 vs the card's f32 at B=1: "
+        f"{json.dumps(cpu_cmp)}")
+    del cpu
+
+    # 4. the server, `--detector yolov5m`: answers against the B=1..4
+    # forwards of their scenes (equal batch sizes: bf16 rounds by batch)
+    warmed = prewarm_serving(spipe)
+
+    def answer(slots):
+        valid = [s for s in slots if s[0] > 0.5]
+        return {} if not valid else prop_ops.to_dist_dict(
+            valid[0][1:12], valid[0][12:] > 0.5)
+
+    refs = {(s, b): answer(spipe.infer_serving([images[s]] * b, height,
+                                               thres)[0])
+            for s in range(n) for b in (1, 2, 4)}
+    with_person = sum(bool(refs[(s, 1)]) for s in range(n))
+    with served(srv.ServingApp(spipe)) as port:
+        health = http_json(port, "GET", "/health")
+        assert health["weights"] == {"detector": "random",
+                                     "pose": "synthetic-certified"}, health
+        m0 = http_json(port, "GET", "/metrics")
+        with counted:
+            answers, wall = post_load(port, scene_bytes, [int(height)] * 16,
+                                      thres, 4)
+        m1 = http_json(port, "GET", "/metrics")
+        batches = m1["batches_total"] - m0["batches_total"]
+        assert counted.last == {"decode_heatmaps": batches, "head_score": 0,
+                                "nms_sweep": batches}, (counted.last, batches)
+        sizes = []
+        for i, r in enumerate(answers):
+            assert r["code"] == "success", r
+            cm = r["body_proportion_lengths_(cm)"]
+            match = [b for b in (1, 2, 4) if refs[(i % n, b)] == cm]
+            assert match, (i, cm, [refs[(i % n, b)] for b in (1, 2, 4)])
+            sizes.append(match[0])
+    log(f"phase Y: server --detector yolov5m (prewarmed {warmed}): 16 "
+        f"requests from 4 clients in {wall:.2f} s, {batches} batches, "
+        f"launches {counted.last}; every answer equals its scene's forward "
+        f"at batch size {sorted(set(sizes))} ({with_person} of {n} scenes "
+        f"with a person in bf16); /health weights "
+        f"{health['weights']}")
+
+    # 5. the registry's yolov5m over HTTP and hbpe gRPC, the NMS on the
+    # client (the card), against the in-process detect_yolo program
+    missing = grpc_modules()
+    app = srv.ServingApp(spipe)
+    grpc_server = None
+    detect = YoloDetectPipeline(spipe.backend.model, 0.4, 0.5, top_k=512)
+    legacy = YoloDetectPipeline(spipe.backend.model, 0.5, 0.4, top_k=512,
+                                legacy_nms=True)
+    n_det, remote_cli = [], None
+    with served(app) as port:
+        http = HttpClient("127.0.0.1", port)
+        clients = {"http": http.infer}
+        if not missing:
+            from human_body_proportion_estimation_tpu_torch.serve.grpc_server import (  # noqa: E501
+                GrpcClient,
+                create_grpc_server,
+            )
+
+            grpc_server, gport = create_grpc_server(app, "127.0.0.1", 0)
+            grpc_server.start()
+            hbpe = GrpcClient(f"127.0.0.1:{gport}")
+            clients["hbpe"] = hbpe.infer
+            remote_cli = detect_yolo_cli(
+                repo, paths[0], ["-t", "0.4", "-g", f"127.0.0.1:{gport}"])
+        try:
+            meta = http.model_metadata("yolov5m")
+            assert meta["outputs"][0]["shape"] == [-1, 25200, 85], meta
+            with recording_nms(k) as seen:
+                for s, img in enumerate(images):
+                    x = letterbox_host(img)[None]
+                    nchw = np.ascontiguousarray(x.transpose(0, 3, 1, 2))
+                    preds = {}
+                    for via, infer in clients.items():
+                        with counted:
+                            preds[via] = infer("yolov5m",
+                                               {"images": nchw})["output"]
+                        assert counted.last == dict.fromkeys(KERNELS, 0)
+                        assert preds[via].shape == (1, 25200, 85)
+                        np.testing.assert_array_equal(preds[via],
+                                                      preds["http"])
+                    p = torch.from_numpy(preds["http"]).to(dev)
+                    with counted:
+                        res = nms_ops.yolo_nms(p, 0.4, 0.5, 300, 512)
+                        res_l = nms_ops.yolo_nms_legacy(p, 80, 0.5, 0.4,
+                                                        300, 512)
+                    assert counted.last == {"decode_heatmaps": 0,
+                                            "head_score": 0,
+                                            "nms_sweep": 2}, counted.last
+                    want = detect(torch.from_numpy(x).to(dev))
+                    want_l = legacy(torch.from_numpy(x).to(dev))
+                    for got, ref in ((res, want), (res_l, want_l)):
+                        assert torch.equal(got.valid, ref.valid), s
+                        torch.testing.assert_close(got.boxes, ref.boxes,
+                                                   rtol=0, atol=1e-4)
+                        torch.testing.assert_close(got.scores, ref.scores,
+                                                   rtol=0, atol=1e-6)
+                        assert torch.equal(got.classes, ref.classes)
+                    n_det.append((int(res.valid.sum()),
+                                  int(res_l.valid.sum())))
+            shapes = check_keep_masks(k, seen, "client NMS")
+            assert {s for s, _ in shapes} == {(1, 512)}, shapes
+            assert sum(p for _, p in shapes) == len(shapes) // 2
+            client_boxes = seen[0][:2]
+            if remote_cli is not None:
+                remote = cli_detections(remote_cli, "detect_yolo -g")
+                assert remote == n_det[0][0], (remote, n_det)
+        finally:
+            if grpc_server is not None:
+                hbpe.close()
+                grpc_server.stop(0)
+    log(f"phase Y: registry yolov5m over {', '.join(clients)}: "
+        f"[1, 25200, 85] a scene, identical on every protocol; the "
+        f"client-side yolo_nms / yolo_nms_legacy at top_k 512 on the card "
+        f"give the in-process detect_yolo detections {n_det} (official, "
+        f"legacy) and their keep masks equal the plain version's "
+        f"(K = 512, both IoU forms)"
+        + ("" if remote_cli is None else
+           f"; detect_yolo -g in a subprocess: {n_det[0][0]} detections"))
+
+    # 6. the CLI in process mode, in subprocesses: default and --legacy-nms
+    procs = {flags: detect_yolo_cli(repo, paths[0], list(flags))
+             for flags in ((), ("--legacy-nms",))}
+    cli = {" ".join(f) or "default": cli_detections(p, f"detect_yolo {f}")
+           for f, p in procs.items()}
+    log(f"phase Y: detect_yolo --model yolov5m (random weights of its own) "
+        f"exits 0: detections {cli}")
+
+    # 7. times: the serving forward, YOLOv5m beside Lite4 in turns; the NMS
+    # kernel on the path's own candidates, beside an empty kernel
+    rates = {"yolov5m": [], "efficientdet_lite4": []}
+    for _ in range(2):
+        rates["efficientdet_lite4"].append(imgs_per_s(lite4_pipe, batch16,
+                                                      175.0, 0.7))
+        rates["yolov5m"].append(imgs_per_s(spipe, batch16, height, thres))
+    blocks, threads = k.nms_launch_shape()
+    sweep = {
+        "[16,128] serving candidates": graph_ms(
+            lambda: k.nms_sweep(path_boxes, path_scores, 0.5), 100),
+        "[1,512] client candidates": graph_ms(
+            lambda: k.nms_sweep(*client_boxes, 0.5), 100),
+        "[1,512] client candidates +1": graph_ms(
+            lambda: k.nms_sweep(*client_boxes, 0.4, plus1=True), 100),
+        "empty kernel, 16 images": graph_ms(
+            lambda: k.empty_launch(16 * blocks, threads), 100),
+        "empty kernel, 1 image": graph_ms(
+            lambda: k.empty_launch(blocks, threads), 100),
+    }
+    log(f"phase Y: infer_serving B=16 imgs/s in turns: "
+        f"{json.dumps(rates)}; nms_sweep graph replay ms: "
+        f"{json.dumps(sweep)}")
+    log(f"phase Y card: {card_line()}")
+    log(f"phase Y: {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{counted.total}")
+    return counted.total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -1430,11 +1848,14 @@ def main() -> int:
         edge = run_serving_edge(k, pipe, golden, scene_bytes)
         run_cli(golden, os.path.abspath(args.repo))
         wire_launches = run_registry_and_wire(k, pipe, golden, scene_bytes)
+        yolo_launches = run_yolo(k, dev, pipe, os.path.abspath(args.repo))
         # the kernels line counts the launches of every path driven: the
-        # main path (phase 3), the serving edge (A) and the registry and
-        # wire protocols (C), each counted from 0 just before it
+        # main path (phase 3), the serving edge (A), the registry and wire
+        # protocols (C) and the YOLO slot (Y), each counted from 0 just
+        # before it
         launches = {name: launches[name] + edge["launches"][name]
-                    + wire_launches[name] for name in launches}
+                    + wire_launches[name] + yolo_launches[name]
+                    for name in launches}
         if args.edge_sweep:
             edge_sweep(pipe, golden, scene_bytes)
     sources = {"decode_heatmaps": "decode_heatmaps.cu",

@@ -2,14 +2,30 @@
 `cli/args.py` flags, option for option (the reference's flags,
 `modules/utils.py:85-113`), so one command line works with either package.
 
-The port has no remote mode yet: `-g/--grpc_port` is accepted and ignored
-by the drivers ported so far (`cli/detect_pose` ignores it in the JAX
-package too); the models run in-process on the GPU.
+The `-g/--grpc_port` flag keeps the reference's Triton-port semantics:
+`detect_yolo` dials the serving edge's named model over the tensor-level
+ModelInfer RPC (serve/registry.py); without it, and in `detect_pose`
+(which ignores it in the JAX package too), the models run in-process on
+the GPU.
 """
 
 from __future__ import annotations
 
 import argparse
+
+# 80 COCO class names (YOLO ordering; public dataset metadata)
+COCO_CLASSES = (
+    "person bicycle car motorcycle airplane bus train truck boat "
+    "traffic_light fire_hydrant stop_sign parking_meter bench bird cat dog "
+    "horse sheep cow elephant bear zebra giraffe backpack umbrella handbag "
+    "tie suitcase frisbee skis snowboard sports_ball kite baseball_bat "
+    "baseball_glove skateboard surfboard tennis_racket bottle wine_glass "
+    "cup fork knife spoon bowl banana apple sandwich orange broccoli "
+    "carrot hot_dog pizza donut cake chair couch potted_plant bed "
+    "dining_table toilet tv laptop mouse remote keyboard cell_phone "
+    "microwave oven toaster sink refrigerator book clock vase scissors "
+    "teddy_bear hair_drier toothbrush"
+).split()
 
 
 def build_parser(description: str) -> argparse.ArgumentParser:
@@ -35,10 +51,11 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("-p", "--person_height", type=float, default=175.0,
                    help="subject height in cm for pixel->cm scaling")
     p.add_argument("-g", "--grpc_port", default=None,
-                   help="serving-edge gRPC port or host:port; accepted "
-                        "for the JAX package's command lines and ignored "
-                        "by the drivers ported so far (the remote mode "
-                        "comes with the gRPC edge)")
+                   help="serving-edge gRPC port or host:port — when set, "
+                        "detect_yolo calls the named model over the "
+                        "tensor-level ModelInfer RPC instead of running "
+                        "in-process (the reference's Triton-port "
+                        "semantics); detect_pose ignores it")
     p.add_argument("--detector", default="efficientdet_lite4",
                    choices=("efficientdet_lite4", "efficientdet_lite0"))
     p.add_argument("--checkpoint-dir", default=None)

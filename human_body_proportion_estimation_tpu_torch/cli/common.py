@@ -9,21 +9,31 @@ from human_body_proportion_estimation_tpu_torch.pipeline.host import (
 )
 
 
+# detector slots the port has not ported yet, and the ROADMAP.md item of each
+NOT_PORTED_DETECTORS = {
+    "ssd_mobilenet": "item 10 (SSD)",
+    "efficientdet_lite0": "item 12 (EfficientDet-Lite0)",
+}
+
+
 def build_pipeline(args=None) -> InferencePipeline:
-    """Pipeline for the top-down CLIs, on the GPU, with the committed
+    """Pipeline for the top-down CLIs, on the GPU: the committed
     synthetic-certified EfficientDet-Lite4 + HRNet-W32 weights (the JAX
-    package's default when no --checkpoint-dir is given). Options the port
-    does not serve yet exit with code 2 and the ROADMAP.md item that brings
-    them."""
+    package's default when no --checkpoint-dir is given), or, for
+    `--detector yolov5s|yolov5m`, a YOLOv5 detector at random (no YOLO
+    weights are in the repository; /health and the log say "random")
+    before the certified HRNet-W32. Options the port does not serve yet
+    exit with code 2 and the ROADMAP.md item that brings them."""
     not_yet = []
     if getattr(args, "checkpoint_dir", None):
         not_yet.append("--checkpoint-dir (orbax checkpoints): ROADMAP.md "
                        "item 17")
-    if getattr(args, "detector", "efficientdet_lite4") != "efficientdet_lite4":
-        not_yet.append(f"--detector {args.detector}: ROADMAP.md items "
-                       "10-12 (slice 6: the other slots)")
+    detector = getattr(args, "detector", None) or "efficientdet_lite4"
+    if detector in NOT_PORTED_DETECTORS:
+        not_yet.append(f"--detector {detector}: ROADMAP.md "
+                       f"{NOT_PORTED_DETECTORS[detector]}")
     if not_yet:
         for msg in not_yet:
             print(f"not ported yet: {msg}", file=sys.stderr)
         raise SystemExit(2)
-    return InferencePipeline(device="cuda")
+    return InferencePipeline(device="cuda", detector=detector)

@@ -7,7 +7,11 @@
 //   is kept iff score_i > 0 and no earlier kept box overlaps it.
 // Overlap test: IoU > t in the division form of ops/boxes.box_iou,
 //   inter / max(union, 1e-12) > t, as the JAX path's `ops/nms.nms_mask`
-//   tests it (efficientdet.py:399). The Pallas kernel's `inter > t * union`
+//   tests it (efficientdet.py:399); or, in the legacy variant (`plus1`), of
+//   ops/nms.box_iou_plus1: widths and heights counted as x2 - x1 + 1, and
+//   inter / (area_a + area_b - inter + 1e-16) > t, as `nms_mask(...,
+//   legacy_plus1_iou=True)` tests it for `yolo_nms_legacy`. Each variant is
+//   its own instantiation. The Pallas kernel's `inter > t * union`
 //   can disagree with it by one rounding at IoU ~= t. Every product, sum
 //   and quotient below is an explicit round-to-nearest intrinsic so that
 //   nvcc cannot contract them into FMAs and round differently from the
@@ -20,7 +24,10 @@
 //   to device memory, the IoUs of one image on one SM's four schedulers, and
 //   K dependent sweep steps.
 // Design: the K boxes are cut into blocks of 32, and the kernel is compiled
-//   for every block count NB = ceil(K / 32) up to 8, so that every loop
+//   for every block count NB = ceil(K / 32) up to 16 (K <= 512; the shared
+//   memory at NB = 16 is 8 KB of boxes, 2 KB of areas, 30 KB of overlap
+//   words below the diagonal and 2 KB on it, under the 48 KB of static
+//   shared memory a thread block may have), so that every loop
 //   below is unrolled and no index is computed at run time. An image has a
 //   cluster of four thread blocks of 1024 threads, on four SMs: the IoUs of
 //   one image keep one SM's schedulers busy for longer than everything else
@@ -35,7 +42,8 @@
 //   bit). The tiles are dealt to the four thread blocks in turn, and warp r
 //   computes row r of every tile of its thread block: lane t tests box
 //   32rb + r against box 32w + t, and one `__ballot_sync` is the row's
-//   32-bit word, so a thread divides 2 or 3 times at K = 128 (10 tiles).
+//   32-bit word, so a thread divides 2 or 3 times at K = 128 (10 tiles)
+//   and 34 times at K = 512 (136 tiles).
 //   The words go to the shared memory of the cluster's first thread block,
 //   from the others through distributed shared memory (the cluster barrier
 //   that ends the staging says that the first thread block has started
@@ -44,7 +52,9 @@
 //   j > i ("which later boxes of its own block box i suppresses"). A
 //   second cluster barrier ends the phase. The IEEE division
 //   takes a slow path when its numerator is 0, which it is for most pairs;
-//   0 / union is 0 unless the union is NaN, and is said so without dividing.
+//   0 / union is 0 unless the union is NaN, and is said so without dividing
+//   (the union is >= 1e-12, or >= 1e-16 in the +1 variant, when the
+//   intersection is 0, so it is never 0 there).
 //   Sweep, by warp 0 of the first thread block, block after block: lane t ANDs the words of box
 //   32rb + t with the final keep words of the finished blocks, all lanes at
 //   once, and one ballot gives the block's boxes that are dead or
@@ -62,7 +72,7 @@
 
 namespace {
 
-constexpr int kMaxK = 256;
+constexpr int kMaxK = 512;
 constexpr int kThreads = 1024;   // 32 warps: warp r takes row r of every tile
 constexpr int kCluster = 4;      // thread blocks an image, one SM each
 constexpr uint32_t kFull = 0xffffffffu;
@@ -81,21 +91,30 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return r;
 }
 
-__device__ __forceinline__ float area_of(float4 b) {
-  return __fmul_rn(max_nan(__fsub_rn(b.z, b.x), 0.0f),
-                   max_nan(__fsub_rn(b.w, b.y), 0.0f));
+// The +1 of the legacy variant on a width or height: x + 1, or x alone.
+template <bool PLUS1>
+__device__ __forceinline__ float plus1(float x) {
+  return PLUS1 ? __fadd_rn(x, 1.0f) : x;
 }
 
-// ops/boxes.box_iou(a, b) > t, operation for operation.
+template <bool PLUS1>
+__device__ __forceinline__ float area_of(float4 b) {
+  return __fmul_rn(max_nan(plus1<PLUS1>(__fsub_rn(b.z, b.x)), 0.0f),
+                   max_nan(plus1<PLUS1>(__fsub_rn(b.w, b.y)), 0.0f));
+}
+
+// ops/boxes.box_iou(a, b) > t, or ops/nms.box_iou_plus1(a, b) > t,
+// operation for operation.
+template <bool PLUS1>
 __device__ __forceinline__ bool overlaps(float4 a, float area_a, float4 b,
                                          float area_b, float thres) {
-  const float iw =
-      max_nan(__fsub_rn(min_nan(a.z, b.z), max_nan(a.x, b.x)), 0.0f);
-  const float ih =
-      max_nan(__fsub_rn(min_nan(a.w, b.w), max_nan(a.y, b.y)), 0.0f);
+  const float iw = max_nan(
+      plus1<PLUS1>(__fsub_rn(min_nan(a.z, b.z), max_nan(a.x, b.x))), 0.0f);
+  const float ih = max_nan(
+      plus1<PLUS1>(__fsub_rn(min_nan(a.w, b.w), max_nan(a.y, b.y))), 0.0f);
   const float inter = __fmul_rn(iw, ih);
-  const float uni =
-      max_nan(__fsub_rn(__fadd_rn(area_a, area_b), inter), 1e-12f);
+  const float diff = __fsub_rn(__fadd_rn(area_a, area_b), inter);
+  const float uni = PLUS1 ? __fadd_rn(diff, 1e-16f) : max_nan(diff, 1e-12f);
   // 0 / uni is 0 for every uni but NaN. Said here, because the IEEE division
   // takes its slow path for a zero numerator, and most pairs do not meet.
   const float iou =
@@ -111,8 +130,8 @@ __device__ __forceinline__ uint32_t chain_step(uint32_t removed,
   return (removed & bit) ? removed : (removed | suppresses);
 }
 
-// NB: the number of 32-box blocks, ceil(K / 32).
-template <int NB>
+// NB: the number of 32-box blocks, ceil(K / 32); PLUS1: the legacy IoU.
+template <int NB, bool PLUS1>
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kThreads, 1)
         nms_sweep_kernel(const float *__restrict__ boxes,
@@ -148,7 +167,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       score = __ldg(scores + (size_t)img * k + j);
     }
     s_box[j] = box;
-    s_area[j] = area_of(box);
+    s_area[j] = area_of<PLUS1>(box);
     // false for a NaN score too
     const uint32_t live = __ballot_sync(kFull, score > 0.0f);
     if (lane == 0) s_live[warp] = live;
@@ -165,8 +184,8 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     for (int w = 0; w <= rb; ++w) {
       if ((rb * (rb + 1) / 2 + w) % kCluster != rank) continue;
       const uint32_t word = __ballot_sync(
-          kFull, overlaps(s_box[32 * w + lane], s_area[32 * w + lane], bi, ai,
-                          thres));
+          kFull, overlaps<PLUS1>(s_box[32 * w + lane], s_area[32 * w + lane],
+                                 bi, ai, thres));
       if (lane == 0) {
         if (w < rb) {
           low[w][32 * rb + warp] = word;
@@ -205,30 +224,34 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 
 __global__ void empty_kernel() {}
 
-template <int NB>
+template <int NB, bool PLUS1>
 int launch(const float *boxes, const float *scores, uint8_t *keep, int batch,
            int k, float thres, cudaStream_t stream) {
   if constexpr (NB > 1) {
     if (k <= 32 * (NB - 1)) {
-      return launch<NB - 1>(boxes, scores, keep, batch, k, thres, stream);
+      return launch<NB - 1, PLUS1>(boxes, scores, keep, batch, k, thres,
+                                   stream);
     }
   }
-  nms_sweep_kernel<NB><<<batch * kCluster, kThreads, 0, stream>>>(
+  nms_sweep_kernel<NB, PLUS1><<<batch * kCluster, kThreads, 0, stream>>>(
       boxes, scores, keep, k, thres);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// boxes [B, K, 4] f32 xyxy, scores [B, K] f32 -> keep [B, K] u8 (0/1).
+// boxes [B, K, 4] f32 xyxy, scores [B, K] f32 -> keep [B, K] u8 (0/1),
+// K <= 512; plus1 != 0 takes the legacy +1-pixel IoU.
 extern "C" int hbpe_nms_sweep(const void *boxes, const void *scores,
                               void *keep, int batch, int k, float thres,
-                              void *stream) {
+                              int plus1, void *stream) {
   if (k > kMaxK || k <= 0) return (int)cudaErrorInvalidValue;
   if (batch <= 0) return (int)cudaSuccess;
-  return launch<kMaxK / 32>((const float *)boxes, (const float *)scores,
-                            (uint8_t *)keep, batch, k, thres,
-                            (cudaStream_t)stream);
+  const float *b = (const float *)boxes, *s = (const float *)scores;
+  uint8_t *out = (uint8_t *)keep;
+  cudaStream_t st = (cudaStream_t)stream;
+  return plus1 ? launch<kMaxK / 32, true>(b, s, out, batch, k, thres, st)
+               : launch<kMaxK / 32, false>(b, s, out, batch, k, thres, st);
 }
 
 // The sweep's launch shape: thread blocks an image, threads a thread block.

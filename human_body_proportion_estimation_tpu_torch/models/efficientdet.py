@@ -361,9 +361,9 @@ def postprocess_prescored(
     boxes_xyxy = boxes_yxyx[:, [1, 0, 3, 2]]
     masked_scores = torch.where(best_score > score_threshold, best_score, 0.0)
     res = nms_ops.nms_fixed(
-        boxes_xyxy, masked_scores, best_class.float(),
-        iou_threshold=iou_threshold, max_det=config.max_detections,
-        top_k=top_k,
+        boxes_xyxy, masked_scores, iou_threshold=iou_threshold,
+        max_det=config.max_detections, top_k=top_k,
+        classes=best_class.float(), class_agnostic=False,
     )
     out_yxyx = res.boxes[:, [1, 0, 3, 2]]
     classes_1based = torch.where(res.valid, res.classes + 1.0, 0.0)

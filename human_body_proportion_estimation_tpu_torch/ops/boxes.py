@@ -1,13 +1,21 @@
 """Box coordinate math (port of the JAX package's `ops/boxes.py`).
 
 Two box orders are kept distinct, as in the JAX package:
-  * ``xyxy``: (x1, y1, x2, y2) — NMS input.
+  * ``xyxy``: (x1, y1, x2, y2) — NMS input, YOLOv5 paths.
   * ``yxyx``: (y1, x1, y2, x2) — EfficientDet / TF detection boxes.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
+
+
+def xywh2xyxy(b: torch.Tensor) -> torch.Tensor:
+    """[..., 4] center-size -> corner (reference onnx_utils.py:280-288)."""
+    cx, cy, w, h = b.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], -1)
 
 
 def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -23,6 +31,33 @@ def box_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     inter = (rb - lt).clamp_min(0.0).prod(-1)
     union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / union.clamp_min(1e-12)
+
+
+def clip_xyxy(b: torch.Tensor, height: float, width: float) -> torch.Tensor:
+    """Clip xyxy boxes to image bounds (reference onnx_utils.py:238-249)."""
+    return torch.stack([
+        b[..., 0].clamp(0, width), b[..., 1].clamp(0, height),
+        b[..., 2].clamp(0, width), b[..., 3].clamp(0, height),
+    ], -1)
+
+
+def scale_coords_letterbox(
+    boxes_xyxy: torch.Tensor,
+    model_hw: Tuple[int, int],
+    orig_hw: Tuple[int, int],
+) -> torch.Tensor:
+    """Invert `ops/image.letterbox` back to original-image pixel coords
+    (reference `scale_coords`, `modules/onnx_utils.py:252-266`):
+    gain = max(model) / max(orig); pad = (model - orig * gain) / 2;
+    subtract the pad, divide by the gain, clip."""
+    mh, mw = model_hw
+    oh, ow = orig_hw
+    gain = max(mh, mw) / max(oh, ow)
+    pad_x = (mw - ow * gain) / 2
+    pad_y = (mh - oh * gain) / 2
+    pad = torch.tensor([pad_x, pad_y, pad_x, pad_y], dtype=boxes_xyxy.dtype,
+                       device=boxes_xyxy.device)
+    return clip_xyxy((boxes_xyxy - pad) / gain, oh, ow)
 
 
 def expand_clip_normalize_yxyx(

@@ -111,7 +111,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hbpe_decode_heatmaps.argtypes = [p, p, p, i, i, i, p]
-    lib.hbpe_nms_sweep.argtypes = [p, p, p, i, i, f, p]
+    lib.hbpe_nms_sweep.argtypes = [p, p, p, i, i, f, i, p]
     # level arrays (z pointers, rows, cells, first columns) and their count,
     # packed weights and bias, best, person, then out_stride, F, A and the
     # stream

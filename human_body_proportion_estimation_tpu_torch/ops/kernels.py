@@ -342,33 +342,41 @@ def head_score(
 
 
 def nms_sweep_plain(
-    boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float
+    boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+    plus1: bool = False,
 ) -> torch.Tensor:
-    return nms_ops.nms_mask(boxes, scores, iou_threshold)
+    return nms_ops.nms_mask(boxes, scores, iou_threshold,
+                            legacy_plus1_iou=plus1)
+
+
+MAX_NMS_K = 512     # candidates an image the sweep kernel takes
 
 
 def nms_sweep(
-    boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float
+    boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+    plus1: bool = False,
 ) -> torch.Tensor:
     """Batched greedy-NMS keep masks: boxes [B, K, 4] xyxy sorted by
-    descending score, scores [B, K] -> keep [B, K] bool. K <= 256. A box
+    descending score, scores [B, K] -> keep [B, K] bool. K <= 512. A box
     with a NaN coordinate overlaps nothing (every IoU with it is NaN), and
     a row whose score is 0, negative or NaN is dead, in the kernel as in
-    the plain version."""
+    the plain version. `plus1` takes the legacy +1-pixel IoU
+    (`ops/nms.box_iou_plus1`) in place of `ops/boxes.box_iou`; both count
+    as `nms_sweep` launches."""
     if _on_cpu(boxes, scores):
-        return nms_sweep_plain(boxes, scores, iou_threshold)
+        return nms_sweep_plain(boxes, scores, iou_threshold, plus1)
     _check(boxes, "boxes", torch.float32, 3)
     _check(scores, "scores", torch.float32, 2)
     b, k, _ = boxes.shape
-    if boxes.shape[2] != 4 or scores.shape != (b, k) or k > 256:
+    if boxes.shape[2] != 4 or scores.shape != (b, k) or k > MAX_NMS_K:
         raise ValueError(
             f"boxes {tuple(boxes.shape)} / scores {tuple(scores.shape)}: "
-            "expected [B, K, 4] / [B, K] with K <= 256"
+            f"expected [B, K, 4] / [B, K] with K <= {MAX_NMS_K}"
         )
     keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
     _launch("nms_sweep", _lib().hbpe_nms_sweep,
             boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
-            float(iou_threshold))
+            float(iou_threshold), int(bool(plus1)))
     return keep
 
 

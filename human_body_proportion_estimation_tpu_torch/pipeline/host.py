@@ -34,11 +34,17 @@ from human_body_proportion_estimation_tpu_torch.models.weights import (
     flax_to_state_dict,
     load_compact_checkpoint,
 )
+from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
+    VARIANTS,
+    YoloV5,
+    init_random,
+)
 from human_body_proportion_estimation_tpu_torch.ops import (
     proportions as prop_ops,
 )
 from human_body_proportion_estimation_tpu_torch.pipeline.backends import (
     EfficientDetBackend,
+    YoloBackend,
 )
 from human_body_proportion_estimation_tpu_torch.pipeline.full import (
     FusedPipeline,
@@ -46,6 +52,9 @@ from human_body_proportion_estimation_tpu_torch.pipeline.full import (
 )
 from human_body_proportion_estimation_tpu_torch.utils.config import (
     PipelineConfig,
+)
+from human_body_proportion_estimation_tpu_torch.utils.logging import (
+    get_logger,
 )
 
 
@@ -159,13 +168,22 @@ class InferencePipeline:
     """Owns the models on one device; `infer_*` block until results are on
     the host.
 
+    `detector`: the detector slot, `cfg.detector.name` by default:
+    "efficientdet_lite4", or "yolov5s" / "yolov5m" / "yolov5l" (the JAX
+    package's `YoloBackend`). The other JAX slots are not ported yet and
+    raise ValueError.
+
     `det_state` / `pose_state`: port `state_dict`s (`load_certified_states`,
-    or `models.weights.flax_to_state_dict` of flax variables). When either
-    is None, both come from the committed certified checkpoint, which only
-    fits the default (full-width) configs; `weights_origin` (what /health
-    reports) then says "synthetic-certified" for both slots, as the JAX
-    server labels that checkpoint, and "real" for state dicts passed in.
-    There is no random-init path.
+    or `models.weights.flax_to_state_dict` of flax variables), labelled
+    "real" in `weights_origin` (what /health reports). EfficientDet-Lite4:
+    when either is None, both come from the committed certified checkpoint,
+    which only fits the default (full-width) configs, labelled
+    "synthetic-certified" as the JAX server labels it. YOLOv5: no YOLO
+    weights are in the repository, so a detector without `det_state` is
+    initialized at random from a torch.Generator seeded with 0
+    (`models.yolov5.init_random`), labelled "random", with the JAX
+    package's loud warning; the pose without `pose_state` is the certified
+    HRNet-W32.
 
     `stages`: an optional `utils.profiling.StageTimer` (the serving edge
     attaches one) that `infer_serving` reports its stages to:
@@ -183,8 +201,10 @@ class InferencePipeline:
         det_config: EfficientDetConfig = EFFICIENTDET_LITE4,
         pose_config: HRNetConfig = HRNET_W32,
         dtype: torch.dtype = torch.bfloat16,
+        detector: Optional[str] = None,
     ):
         self.config = cfg = config or PipelineConfig()
+        detector = detector or cfg.detector.name
         self.device = torch.device(device)
         torch.empty(0, device=self.device)  # an unusable device fails here
         if self.device.type == "cuda":
@@ -193,24 +213,52 @@ class InferencePipeline:
             # computes them in full f32.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        origin = "real"
-        if det_state is None or pose_state is None:
-            det_state, pose_state = load_certified_states()
-            origin = "synthetic-certified"
-        self.weights_origin = {"detector": origin, "pose": origin}
+        if detector in VARIANTS:
+            origin = {"detector": "real", "pose": "real"}
+            if pose_state is None:
+                _, pose_state = load_certified_states()
+                origin["pose"] = "synthetic-certified"
+            model = YoloV5(VARIANTS[detector], dtype=dtype)
+            if det_state is None:
+                init_random(model)
+                origin["detector"] = "random"
+            else:
+                model.load_state_dict(det_state, strict=True)
+            self.backend = YoloBackend(model.to(self.device).eval(), cfg)
+        elif detector == "efficientdet_lite4":
+            label = "real"
+            if det_state is None or pose_state is None:
+                det_state, pose_state = load_certified_states()
+                label = "synthetic-certified"
+            origin = {"detector": label, "pose": label}
+            model = EfficientDet(
+                det_config, dtype=dtype,
+                person_class0=cfg.detector.person_class_id - 1,
+            )
+            model.load_state_dict(det_state, strict=True)
+            self.backend = EfficientDetBackend(
+                model.to(self.device).eval(), cfg, self.device)
+        else:
+            raise ValueError(
+                f"detector {detector!r} is not ported yet (ROADMAP.md "
+                "item 10: ssd_mobilenet; item 12: efficientdet_lite0)")
+        self.weights_origin = origin
+        if "random" in origin.values():
+            # the JAX package's warning: random weights give confident-
+            # looking garbage, so a slot serving them says so
+            get_logger("pipeline").warning(
+                "random_weights",
+                msg="RANDOM-INIT WEIGHTS IN USE — outputs are garbage; "
+                    "pass det_vars/pose_vars (weights.load_pipeline_"
+                    "checkpoint) or detector='ssd_mobilenet'",
+                **origin,
+            )
         self.stages = None
         self.prewarmed = False
 
-        detector = EfficientDet(
-            det_config, dtype=dtype,
-            person_class0=cfg.detector.person_class_id - 1,
-        )
         pose = HRNet(pose_config, dtype=dtype)
-        detector.load_state_dict(det_state, strict=True)
         pose.load_state_dict(pose_state, strict=True)
-        detector.to(self.device).eval()
         pose.to(self.device).eval()
-        self.backend = EfficientDetBackend(detector, cfg, self.device)
         self.pose = pose
         self.fused = FusedPipeline(cfg, self.backend, pose)
 

@@ -13,11 +13,13 @@ whose modules it has:
     (``detection_boxes/scores/classes``, ``filtered_boxes``,
     ``human_crops``, reference `models/conv.py:82-86`).
   * ``hrnet`` (`pose_est_hrnet_trtserver.py:22-25`) — ``output`` heatmaps.
+  * ``yolov5m`` / ``yolov5s`` (`obj_det_yolov5_trtserver.py:53`) —
+    ``images`` f32 NCHW [B, 3, 640, 640] (already /255) -> ``output``
+    [B, 25200, 85] decoded predictions; the NMS runs on the client.
 
-The JAX package's ``higherhrnet``, ``yolov5m``, ``yolov5s`` and
-``ssd_mobilenet`` come with the port's other slots (ROADMAP.md items
-10-13); until then they are not registered, so they answer as an unknown
-name does (NOT_FOUND / 404).
+The JAX package's ``higherhrnet`` and ``ssd_mobilenet`` come with the
+port's other slots (ROADMAP.md items 10 and 12); until then they are not
+registered, so they answer as an unknown name does (NOT_FOUND / 404).
 
 Clients introspect each model's inputs, outputs and max_batch_size before
 building requests (`modules/triton_utils.py:54-72` ``parse_model_grpc``):
@@ -35,7 +37,10 @@ Design notes, as in the JAX package:
     HRNet and EfficientDet modules, so registry inference adds no device
     memory; the detector models run the canonical all-class head of the
     same EfficientDet (`forward(..., all_classes=True)`, f32 class predict
-    conv, greedy NMS through the NMS sweep kernel).
+    conv, greedy NMS through the NMS sweep kernel). A YOLO model shares
+    the serving pipeline's detector when that is the same YOLOv5 variant,
+    else it is built at random from a seeded torch.Generator (no YOLO
+    weights are in the repository), labelled "random".
   * The no-detection fallback of `models/conv.py:72-79` (a single all-zero
     crop, so HRNet runs on zeros) is kept: invalid person slots are zeroed
     before the pose stage and `human_crops` / heatmaps have max(n, 1) rows.
@@ -692,6 +697,62 @@ def _hrnet_entry(cfg, device, pose=None,
     )
 
 
+def _yolo_entry(cfg, device, variant: str, model=None,
+                weights: str = "random") -> ModelEntry:
+    """`yolov5m` / `yolov5s`: "images" f32 NCHW [B, 3, 640, 640] (already
+    /255, reference obj_det_yolov5_trtserver.py:30-37) -> "output"
+    [B, 25200, 85] decoded predictions (the layout its postprocess reads,
+    :40-44). `model`: the serving pipeline's YOLOv5 of this variant, if it
+    has one; else the entry builds its own at its first load, from
+    `models.yolov5.init_random`."""
+    size = 640
+    max_batch = cfg.serve.max_batch
+
+    def build():
+        import torch
+
+        from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
+            VARIANTS,
+            YoloV5,
+            decode_predictions,
+            init_random,
+        )
+        from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+            _pad_batch,
+        )
+
+        net = model
+        if net is None:
+            net = init_random(YoloV5(VARIANTS[variant])).to(device).eval()
+
+        @torch.inference_mode()
+        def run(inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+            x = inputs["images"]
+            n = x.shape[0]
+            b = _pad_batch(n, max_batch)  # the serving pipeline's buckets
+            if b != n:
+                x = np.concatenate(
+                    [x, np.zeros((b - n,) + x.shape[1:], x.dtype)]
+                )
+            out = decode_predictions(net(_to_device(x, device)),
+                                     net.config.num_classes)
+            return {"output": out[:n].cpu().numpy()}
+
+        return run
+
+    n_pred = sum((size // s) ** 2 * 3 for s in (8, 16, 32))  # 25200
+    return ModelEntry(
+        name=variant,
+        platform="pytorch",
+        inputs=[TensorSpec("images", "FP32", (-1, 3, size, size))],
+        outputs=[TensorSpec("output", "FP32", (-1, n_pred, 85))],
+        max_batch_size=max_batch,
+        weights=weights,
+        build=build,
+        batch_timeout_ms=cfg.serve.batch_timeout_ms,
+    )
+
+
 def _build_edet_core(cfg, det_config, device, detector=None):
     """The shared lazily built detection core of the three EfficientDet
     models: the detector (shared, or built on `device`), its anchors on
@@ -972,6 +1033,12 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
     from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
         EFFICIENTDET_LITE4,
     )
+    from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
+        VARIANTS,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.backends import (
+        YoloBackend,
+    )
     from human_body_proportion_estimation_tpu_torch.utils.config import (
         PipelineConfig,
     )
@@ -980,18 +1047,30 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
     pose = det = None
     det_config = EFFICIENTDET_LITE4
     det_weights = pose_weights = "random"
+    yolo: Dict[str, Tuple[Any, str]] = {}
     if pipeline is not None:
         cfg = pipeline.config
         origin = pipeline.weights_origin
         pose, pose_weights = pipeline.pose, origin["pose"]
-        det = pipeline.backend.detector
-        det_config, det_weights = det.config, origin["detector"]
+        backend = pipeline.backend
+        if isinstance(backend, YoloBackend):
+            # the serving detector is a YOLOv5: the yolo entry of its
+            # variant shares it; the EfficientDet models build their own
+            variant = {cfg_: name for name, cfg_ in VARIANTS.items()}.get(
+                backend.model.config)
+            if variant is not None:
+                yolo[variant] = (backend.model, origin["detector"])
+        else:
+            det = backend.detector
+            det_config, det_weights = det.config, origin["detector"]
         device = device or pipeline.device
     device = torch.device(device or "cuda")
 
     reg = ModelRegistry()
     for e in (
         _hrnet_entry(cfg, device, pose, pose_weights),
+        _yolo_entry(cfg, device, "yolov5m", *yolo.get("yolov5m", ())),
+        _yolo_entry(cfg, device, "yolov5s", *yolo.get("yolov5s", ())),
         *_edet_entries(cfg, det_config, device, det, pose,
                        det_weights=det_weights, pose_weights=pose_weights),
     ):

@@ -43,6 +43,9 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from human_body_proportion_estimation_tpu_torch.cli.common import (
+    NOT_PORTED_DETECTORS,
+)
 from human_body_proportion_estimation_tpu_torch.ops import (
     proportions as prop_ops,
 )
@@ -905,11 +908,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "service and the stock KServe service; the "
                              "reference exposes Triton gRPC on 8081")
     parser.add_argument(
-        "--detector", default="efficientdet_lite4",
+        "--detector", default="ssd_mobilenet",
         choices=["efficientdet_lite4", "efficientdet_lite0",
                  "ssd_mobilenet", "yolov5s", "yolov5m"],
-        help="only efficientdet_lite4 (the committed synthetic-certified "
-             "weights) is ported; the other slots exit",
+        help="default ssd_mobilenet, as the JAX server (not ported yet: "
+             "exits, as does efficientdet_lite0); efficientdet_lite4 "
+             "serves the committed synthetic-certified weights, yolov5s / "
+             "yolov5m a random YOLOv5 (no YOLO weights are in the "
+             "repository) before the certified HRNet-W32",
     )
     parser.add_argument("--checkpoint-dir", default=None,
                         help="orbax checkpoint dir with det/pose params "
@@ -945,9 +951,9 @@ def main(argv=None):
         value = getattr(args, attr)
         if value and not (attr == "data_parallel" and value <= 1):
             parser.error(f"{flag} is not ported yet: ROADMAP.md {item}")
-    if args.detector != "efficientdet_lite4":
+    if args.detector in NOT_PORTED_DETECTORS:
         parser.error(f"--detector {args.detector} is not ported yet: "
-                     "ROADMAP.md items 10-12 (slice 6: the other slots)")
+                     f"ROADMAP.md {NOT_PORTED_DETECTORS[args.detector]}")
     if args.grpc_port:
         # before any model is built: a server asked for gRPC never serves
         # HTTP alone without saying so
@@ -962,14 +968,32 @@ def main(argv=None):
                          f"cannot start ({e}); pass --grpc-port 0 to serve "
                          "HTTP alone")
 
+    _serve(args, build_pipeline(args))
+
+
+def build_pipeline(args) -> InferencePipeline:
+    """The serving pipeline of `main`, on the GPU, announced as the JAX
+    server announces it (the certified checkpoint's slots, and a loud
+    warning for slots at random)."""
     from human_body_proportion_estimation_tpu_torch.models.weights import (
         default_certified_checkpoint,
     )
 
-    pipeline = InferencePipeline(device="cuda")
+    pipeline = InferencePipeline(device="cuda", detector=args.detector)
+    origin = pipeline.weights_origin
+    certified = [k for k, v in origin.items() if v == "synthetic-certified"]
     print("serving committed synthetic-certified weights for "
-          f"pose+detector ({default_certified_checkpoint()})", flush=True)
-    _serve(args, pipeline)
+          f"{'+'.join(certified)} ({default_certified_checkpoint()})",
+          flush=True)
+    if "random" in origin.values():
+        print(
+            "WARNING: serving RANDOM-INIT weights for "
+            + ", ".join(k for k, v in origin.items() if v == "random")
+            + " — outputs are garbage; pass --checkpoint-dir or use "
+              "--detector ssd_mobilenet (see /health 'weights')",
+            flush=True,
+        )
+    return pipeline
 
 
 def _serve(args, pipeline):

@@ -52,6 +52,21 @@ def draw_box(
         )
 
 
+def class_color(class_id: int) -> tuple:
+    """Deterministic per-class detection color, RGB.
+
+    The reference's seeded scheme (`obj_det_yolov5_onnx.py:56-57`):
+    ``np.random.seed(label + 2020)`` then two uint8 draws with the green
+    channel zeroed. The reference draws onto a BGR frame as (B, 0, R);
+    frames here are RGB, so the draws are swapped to render the same
+    pixels: (second draw, 0, first draw).
+    """
+    rng = np.random.RandomState(int(class_id) + 2020)
+    b = int(rng.randint(0, 255))
+    r = int(rng.randint(0, 255))
+    return (r, 0, b)
+
+
 def draw_keypoints(
     frame: np.ndarray,
     keypoints: np.ndarray,       # [17, 2] (x, y)

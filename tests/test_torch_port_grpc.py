@@ -65,6 +65,7 @@ from tests.test_torch_port_serve import (
 )
 from tests.torch_port_tiny import (
     PORTED,
+    YOLO,
     image,
     jax_pipeline,
     jax_registry,
@@ -259,7 +260,7 @@ def test_hbpe_repository_documents_match_jax(servers):
             assert got == ref, (doc, name)
     assert both(servers, lambda c: c.model_ready("hrnet", model_version="1")
                 ) == (True, True)
-    for name in ("yolov5m", "nope"):
+    for name in ("ssd_mobilenet", "nope"):
         code, _ = same_error(servers, lambda c: c.model_metadata(name))
         assert code == grpc.StatusCode.NOT_FOUND
     same_error(servers, lambda c: c.model_config("hrnet", model_version="7"))
@@ -277,7 +278,7 @@ def test_hbpe_model_infer_matches_jax(servers):
     assert list(got) == ["ENSEMBLE_OUTPUT_FILTER_DET_BOXES"]
     np.testing.assert_allclose(got["ENSEMBLE_OUTPUT_FILTER_DET_BOXES"],
                                ref["ENSEMBLE_OUTPUT_FILTER_DET_BOXES"], **TOL)
-    for name, inp in (("nope", {"input": x}), ("yolov5s", {"input": x}),
+    for name, inp in (("nope", {"input": x}), ("higherhrnet", {"input": x}),
                       ("hrnet", {"wrong": x}),
                       ("hrnet", {"input": x.astype(np.float64)})):
         same_error(servers, lambda c: c.infer(name, inp))
@@ -434,7 +435,7 @@ def test_kserve_stream_errors_carry_the_request_id(servers):
     x = np.random.default_rng(4).random((1, 3, 64, 64), np.float32)
     requests = [
         {"model_name": "hrnet", "inputs": {"input": x}, "id": "one"},
-        {"model_name": "yolov5m", "inputs": {"images": x}, "id": "two"},
+        {"model_name": "ssd_mobilenet", "inputs": {"image": x}, "id": "two"},
         {"model_name": "hrnet", "inputs": {"input": x.astype(np.float64)},
          "id": "three"},
     ]
@@ -442,14 +443,14 @@ def test_kserve_stream_errors_carry_the_request_id(servers):
                     kserve=True)
     assert [(i["id"], i["error"]) for i in got] == [
         (i["id"], i["error"]) for i in ref]
-    assert got[1]["outputs"] is None and "yolov5m" in got[1]["error"]
+    assert got[1]["outputs"] is None and "ssd_mobilenet" in got[1]["error"]
     np.testing.assert_allclose(got[0]["outputs"]["output"],
                                ref[0]["outputs"]["output"], **TOL)
 
 
 def test_kserve_repository_and_statistics_match_jax(servers):
     for client in servers["kclients"]:
-        for name in PORTED:
+        for name in set(PORTED) - set(YOLO):
             client.load_model(name)
         client.unload_model(ENSEMBLE, unload_dependents=True)
     ref, got = both(servers, lambda c: c.get_model_repository_index(),
@@ -458,8 +459,9 @@ def test_kserve_repository_and_statistics_match_jax(servers):
     loaded = {r["name"]: r["loaded"]
               for r in servers["tapp"].registry.index()}
     assert loaded == {"edetlite4": True, "edetlite4_modified": False,
-                      ENSEMBLE: False, "hrnet": False}
-    same_error(servers, lambda c: c.load_model("yolov5s"), kserve=True)
+                      ENSEMBLE: False, "hrnet": False, "yolov5m": False,
+                      "yolov5s": False}
+    same_error(servers, lambda c: c.load_model("higherhrnet"), kserve=True)
     ref, got = both(servers, lambda c: c.get_inference_statistics("hrnet"),
                     kserve=True)
     assert got.model_stats[0].name == "hrnet"
@@ -526,7 +528,7 @@ def test_server_main_exits_when_grpc_cannot_start(monkeypatch, capsys):
     monkeypatch.setattr(builtins, "__import__", no_grpc)
     for argv in ([], ["--grpc-port", "9000"]):
         with pytest.raises(SystemExit) as exc:
-            server.main(argv)
+            server.main(argv + ["--detector", "efficientdet_lite4"])
         assert exc.value.code == 2
         err = capsys.readouterr().err
         assert "No module named 'grpc'" in err

@@ -214,8 +214,9 @@ def test_nms_fixed_matches_jax(n_classes, top_k, max_det):
                          max_det=max_det, top_k=top_k,
                          classes=jnp.asarray(classes),
                          class_agnostic=False)
-    got = tnms.nms_fixed(_t(boxes), _t(scores), _t(classes), 0.45,
-                         max_det=max_det, top_k=top_k)
+    got = tnms.nms_fixed(_t(boxes), _t(scores), 0.45, max_det=max_det,
+                         top_k=top_k, classes=_t(classes),
+                         class_agnostic=False)
     assert type(got).__name__ == "NmsResult" and got._fields == ref._fields
     for name, g, r in zip(got._fields, got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r), name)
@@ -229,8 +230,8 @@ def test_nms_fixed_one_class_is_class_agnostic():
     boxes, scores, _ = _nms_fixed_inputs(9, 50)
     ref = jnms.nms_fixed(jnp.asarray(boxes), jnp.asarray(scores), 0.5,
                          max_det=60, top_k=32)
-    got = tnms.nms_fixed(_t(boxes), _t(scores), torch.zeros(50), 0.5,
-                         max_det=60, top_k=32)
+    got = tnms.nms_fixed(_t(boxes), _t(scores), 0.5, max_det=60, top_k=32,
+                         classes=torch.zeros(50), class_agnostic=False)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 

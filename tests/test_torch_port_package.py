@@ -54,7 +54,7 @@ for name in ("grpc", "google.protobuf", "jax", "flax",
 from human_body_proportion_estimation_tpu_torch.serve import (
     client, registry, server, wire)
 reg = registry.build_registry(device="cpu")
-assert len(reg.names()) == 4, reg.names()
+assert len(reg.names()) == 6, reg.names()
 loaded = [m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))]
 assert not loaded, loaded

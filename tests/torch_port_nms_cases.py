@@ -114,7 +114,7 @@ def nms_cases():
                       scores, t, None))
     boxes, scores, expected = cross_block_chain()
     cases.append(("chain across three blocks", boxes, scores, 0.5, expected))
-    for k in (1, 31, 33, 100, 256):
+    for k in (1, 31, 33, 100, 256, 512):
         boxes, scores = random_case(20 + k, 2, k, dead=min(3, k - 1))
         cases.append((f"K={k}", boxes, scores, 0.5, None))
     boxes, scores = random_case(31, 1, 128, dead=9)
