@@ -70,7 +70,7 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      `ServingApp` on 127.0.0.1:0 and, where `grpc` and `google.protobuf`
      import, its gRPC server (hbpe and KServe services) on 127.0.0.1:0;
      without them a line names the missing module and only HTTP is driven.
-     The index and the documents of the 6 models at full width; the
+     The index and the documents of the 7 models at full width; the
      ensemble on the 3 scenes over HTTP binary_tensor_data (and gRPC
      ModelInfer): as many persons as the goldens, boxes within 0.01 of the
      main path's, heatmaps decoded by the decode kernel into cm as the
@@ -101,7 +101,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      program); `detect_yolo` in subprocesses (remote -g, default,
      --legacy-nms); imgs/s at B=16 beside Lite4 and the NMS kernel on the
      path's own candidates.
-  4. report: a `kernels` JSON line (launches: phases 3, A, C and Y), the
+  D. the other slots and their CLIs (ROADMAP item 12), with the seeded
+     weights of tests/data/torch_port/slot_goldens.json made again on the
+     CPU (tests/torch_port_slots.py): the f32 (TF32 off) EfficientDet-Lite0
+     `EdetDetectPipeline` at B=3 and HigherHRNet on the scenes' 384x288
+     crops against the JAX goldens (the same detections, boxes within
+     0.05 px, scores within 1e-4; every map's argmax identical, maxima
+     within 1e-3 + 1e-3 relative); `--detector efficientdet_lite0` as the
+     server builds it (/health random / synthetic-certified) with the
+     seeded Lite0 at B=16 and B=1: launches 1 / 1 / 1 a forward, every
+     keep mask against plain, the head-score kernel at F = 64 on the
+     forward's own level features (B=16 and B=1, phase 2's rule); the
+     HigherHRNet pose slot at B=16: the decode kernel on the forward's own
+     [48,17,192,144] maps and with NaN maps, exact; the registry's
+     higherhrnet over HTTP binary_tensor_data and hbpe gRPC, each answer
+     equal to the forward of its rows zero-padded to the launch bucket;
+     detect_edet (Lite4, Lite0) and pose_est (hrnet_w32, hrnet_w48,
+     higherhrnet) in subprocesses, then with -g against the Lite0 server's
+     gRPC edge (edetlite4, hrnet, higherhrnet), each remote answer equal to
+     the registry's forward here at batch size 1; imgs/s at B=16 beside
+     Lite4; head-score F = 64 (B=16, B=1) and decode [48,17,192,144] timed
+     beside their bounds and the library call.
+  4. report: a `kernels` JSON line (launches: phases 3, A, C, Y and D), the
      card's name and power limit, and the result line
      {"ok": true, "device": {...}} last.
 
@@ -1025,10 +1046,11 @@ def run_cli(golden, repo):
 
 
 REGISTRY_MODELS = ["edetlite4", "edetlite4_modified",
-                   "ensemble_edet4_person_det_pose", "hrnet", "yolov5m",
-                   "yolov5s"]
-YOLO_MODELS = ["yolov5m", "yolov5s"]
-NOT_PORTED = ["higherhrnet", "ssd_mobilenet"]
+                   "ensemble_edet4_person_det_pose", "higherhrnet", "hrnet",
+                   "yolov5m", "yolov5s"]
+# the models no weights of which are in the repository
+RANDOM_MODELS = ["higherhrnet", "yolov5m", "yolov5s"]
+NOT_PORTED = ["ssd_mobilenet"]
 ENSEMBLE = "ensemble_edet4_person_det_pose"
 KERNELS = ("decode_heatmaps", "head_score", "nms_sweep")
 
@@ -1190,8 +1212,9 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
             # the index and the documents, at full width
             index = http.models()["models"]
             assert [r["name"] for r in index] == REGISTRY_MODELS, index
-            # no YOLO weights are in the repository: those two are random
-            assert all(r["weights"] == ("random" if r["name"] in YOLO_MODELS
+            # no YOLO or HigherHRNet weights are in the repository: those
+            # three are random
+            assert all(r["weights"] == ("random" if r["name"] in RANDOM_MODELS
                                         else "synthetic-certified")
                        for r in index), index
             assert [r["name"] for r in http.get_model_repository_index()] \
@@ -1224,7 +1247,7 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
                     assert hbpe.model_config(n)["max_batch_size"] == \
                         conf[n]["max_batch_size"]
             assert meta["yolov5m"]["outputs"][0]["shape"] == [-1, 25200, 85]
-            log("phase C: index and documents of the 6 models at full width "
+            log("phase C: index and documents of the 7 models at full width "
                 "agree over " + ", ".join(clients))
 
             # the ensemble on the scenes, against the main path and goldens
@@ -1792,6 +1815,436 @@ def run_yolo(k, dev, lite4_pipe, repo):
     return counted.total
 
 
+# --------------------------------------------------------------------- #
+# phase D: the other slots (EfficientDet-Lite0, HigherHRNet) and their CLIs
+
+
+def load_slots():
+    """tests/torch_port_slots.py (the seeded weights, inputs and summaries
+    the CPU tests and the goldens generator share), loaded from the file
+    beside this one."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_port_slots", os.path.join(REPO, "tests", "torch_port_slots.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def level_features(model, images):
+    """The class head's level features z of one forward of `model` (the
+    head-score kernel's inputs, NHWC bf16) and the forward's (best,
+    person) outputs."""
+    import torch
+
+    zs = []
+    hook = model.class_net.predict_dw.register_forward_hook(
+        lambda m, i, o: zs.append(
+            o.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()))
+    try:
+        with torch.inference_mode():
+            best, person, _ = model(images)
+    finally:
+        hook.remove()
+    return zs, (best, person)
+
+
+def cli_process(repo, module, image, extra):
+    """`python3 -m <port>.cli.<module>` in a subprocess (started, not
+    waited for)."""
+    return subprocess.Popen(
+        [sys.executable, "-m",
+         f"human_body_proportion_estimation_tpu_torch.cli.{module}",
+         "-i", image, "-o", "", *extra],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cli_output(proc, what):
+    """The frame-0 lines a CLI printed: detect_edet -> [(class, score,
+    [y1, x1, y2, x2]), ...]; pose_est -> (keypoints, scores)."""
+    import ast
+    import re
+
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, (what, err[-4000:])
+    m = re.search(r"^frame 0: (\d+) detections$", out, re.M)
+    if m:
+        rows = re.findall(r"^  (\d+) (\S+) (\[.*\])$", out, re.M)
+        assert len(rows) == int(m.group(1)), (what, out[-2000:])
+        return [(int(c), float(s), ast.literal_eval(b)) for c, s, b in rows]
+    m = re.search(r"^frame 0: heatmaps (\[.*?\]) keypoints (\[.*\]) scores "
+                  r"(\[.*\])$", out, re.M)
+    assert m, (what, out[-2000:])
+    return tuple(ast.literal_eval(g) for g in m.groups())
+
+
+def run_other_slots(k, dev, lite4_pipe, repo, batch=16):
+    """Phase D: `--detector efficientdet_lite0`, the HigherHRNet pose slot,
+    the registry's `higherhrnet` and the detect_edet / pose_est CLIs on
+    the card. Returns the launches of the paths' forwards and requests
+    (comparisons excluded). `batch`: the serving batch (16; smaller only
+    to rehearse the phase)."""
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.models.efficientdet import (  # noqa: E501
+        EFFICIENTDET_LITE0,
+        EfficientDet,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.higherhrnet import (  # noqa: E501
+        HigherHRNet,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.detect import (
+        EdetDetectPipeline,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        InferencePipeline,
+        _pad_batch,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.pose import (
+        preprocess_crop_host,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve import (
+        server as srv,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.client import (
+        HttpClient,
+    )
+    from human_body_proportion_estimation_tpu_torch.utils.config import (
+        PipelineConfig,
+        PoseConfig,
+    )
+
+    t_phase = time.perf_counter()
+    slots = load_slots()
+    with open(os.path.join(DATA, "slot_goldens.json")) as fh:
+        golden = json.load(fh)
+    g_lite0, g_higher = golden["lite0"], golden["higherhrnet"]
+    images = slots.scenes()
+    n = len(images)
+    crops = slots.crops(images)
+    batch16 = [images[i % n] for i in range(batch)]
+    height, thres = 175.0, 0.5
+    counted = Counted(k)
+    figures = {}
+
+    # 1. the goldens' seeded weights, made again on this machine's CPU
+    t0 = time.perf_counter()
+    lite0_state = slots.to_torch(slots.lite0_state(
+        g_lite0["seed"], g_lite0["class_bias"], images))
+    higher_state = slots.to_torch(slots.higher_state(g_higher["seed"], crops))
+    log(f"phase D: seeded Lite0 (seed {g_lite0['seed']}, class bias "
+        f"{g_lite0['class_bias']}) and HigherHRNet (seed {g_higher['seed']}) "
+        f"made on the CPU in {time.perf_counter() - t0:.1f} s")
+
+    # 2. f32 forwards (TF32 off) against the JAX goldens
+    det32 = EfficientDet(EFFICIENTDET_LITE0, dtype=torch.float32)
+    det32.load_state_dict(lite0_state, strict=True)
+    detect32 = EdetDetectPipeline(det32.to(dev).eval(),
+                                  tuple(g_lite0["input_hw"]))
+    with recording_nms(k) as seen:
+        with counted:
+            dets = detect32(torch.from_numpy(images).to(dev))
+    assert counted.last == {"decode_heatmaps": 0, "head_score": 0,
+                            "nms_sweep": 1}, counted.last
+    check_keep_masks(k, seen, "EdetDetectPipeline")
+    box_err = score_err = 0.0
+    for i, ref in enumerate(g_lite0["detections"]):
+        m = len(ref["scores"])
+        scores = dets.scores[i].cpu().numpy()
+        keep = dets.valid[i].cpu().numpy() & (
+            scores >= g_lite0["det_threshold"])
+        assert keep[:m].all() and not keep[m:].any(), (i, keep, ref)
+        assert dets.classes[i][:m].cpu().numpy().tolist() == ref["classes"]
+        box_err = max(box_err, float(np.abs(dets.boxes[i][:m].cpu().numpy()
+                                            - ref["boxes_yxyx"]).max()))
+        score_err = max(score_err, float(np.abs(scores[:m]
+                                                - ref["scores"]).max()))
+    assert box_err <= 0.05 and score_err <= 1e-4, (box_err, score_err)
+    higher32 = HigherHRNet(dtype=torch.float32)
+    higher32.load_state_dict(higher_state, strict=True)
+    higher32 = higher32.to(dev).eval()
+    with torch.inference_mode():
+        out32 = higher32(torch.from_numpy(crops).to(dev))
+    max_err = 0.0
+    for name in ("output_1", "output_2"):
+        mx, am, _ = slots.heatmap_summary(out32[name].cpu().numpy())
+        ref = g_higher[name]
+        assert list(out32[name].shape) == ref["shape"], name
+        assert am == ref["argmax"], f"{name}: argmax differs from the goldens"
+        err = np.abs(np.asarray(mx) - ref["max"])
+        assert (err <= 1e-3 + 1e-3 * np.abs(ref["max"])).all(), (name, err)
+        max_err = max(max_err, float(err.max()))
+    figures["goldens"] = dict(
+        lite0_detections=[len(d["scores"]) for d in g_lite0["detections"]],
+        lite0_box_err_px=box_err, lite0_score_err=score_err,
+        higherhrnet_max_abs_err=max_err)
+    log(f"phase D: f32 (TF32 off) vs the JAX goldens: Lite0 "
+        f"EdetDetectPipeline at B=3, the same "
+        f"{figures['goldens']['lite0_detections']} detections, boxes within "
+        f"{box_err:.3g} px, scores within {score_err:.3g}; HigherHRNet at "
+        f"384x288, every map's argmax identical, maxima within "
+        f"{max_err:.3g}")
+
+    # 3. the Lite0 serving path, as `server --detector efficientdet_lite0`
+    # builds it (the certified HRNet-W32, the detector at random and
+    # labelled so), with the goldens' seeded Lite0 in place of its own
+    args = srv.build_parser().parse_args(["--detector", "efficientdet_lite0"])
+    lpipe = srv.build_pipeline(args)
+    assert lpipe.weights_origin == {"detector": "random",
+                                    "pose": "synthetic-certified"}, \
+        lpipe.weights_origin
+    detector = lpipe.backend.detector
+    assert detector.config == EFFICIENTDET_LITE0
+    detector.load_state_dict(lite0_state, strict=True)
+    with recording_nms(k) as seen:
+        with counted:
+            packed = lpipe.infer_serving(batch16, height, thres)
+            for img in images:
+                lpipe.infer_images([img], height, thres)
+    forwards = 1 + n
+    assert counted.last == dict.fromkeys(KERNELS, forwards), counted.last
+    shapes = check_keep_masks(k, seen, "Lite0 serving forwards")
+    assert sorted(shapes) == sorted([((batch, 128), False)]
+                                    + [((1, 128), False)] * n), shapes
+    assert packed.shape == (batch, 3, 23) and np.isfinite(packed).all()
+    for i in range(batch):
+        np.testing.assert_array_equal(packed[i], packed[i % n])
+    # the head-score kernel at F = 64 on the forward's own level features
+    x16 = torch.from_numpy(np.stack(batch16)).to(dev).float()
+    zs16, _ = level_features(detector, x16)
+    zs1, _ = level_features(detector, x16[:1])
+    w_cls, b_cls = detector._class_predict_params()
+    assert [z.shape[-1] for z in zs16] == [64] * 5
+    hs_err, n_person = 0.0, 0
+    for name, zs in ((f"B={batch}", zs16), ("B=1", zs1)):
+        e, p = head_score_agrees(
+            k.head_score_levels(zs, w_cls, b_cls, 9, 90, 0),
+            k.head_score_levels_plain(zs, w_cls, b_cls, 9, 90, 0),
+            f"head_score_levels F=64 {name}")
+        hs_err, n_person = max(hs_err, e), n_person + p
+    figures["lite0_persons"] = int((packed[:n, :, 0] > 0.5).sum())
+    log(f"phase D: Lite0 serving (/health {lpipe.weights_origin}): "
+        f"{forwards} forwards, launches {counted.last} (1 / 1 / 1 a "
+        f"forward); the {len(seen)} keep masks equal the plain version's; "
+        f"head_score at F = 64 (launch<2>) on the forward's own level "
+        f"features, B=16 and B=1: max |err| {hs_err:.3g} against plain, "
+        f"{n_person} person-argmax anchors; {figures['lite0_persons']} "
+        f"persons in the 3 scenes")
+
+    # 4. the HigherHRNet pose slot: heatmaps at 1/2 of the 384x288 crops
+    cfg = PipelineConfig(pose=PoseConfig(name="higherhrnet",
+                                         heatmap_height=192,
+                                         heatmap_width=144))
+    hpipe = InferencePipeline(cfg, device=dev, detector="efficientdet_lite4")
+    assert hpipe.weights_origin == {"detector": "synthetic-certified",
+                                    "pose": "random"}, hpipe.weights_origin
+    hpipe.pose.load_state_dict(
+        {"higher." + key: v for key, v in higher_state.items()}, strict=True)
+    maps = []
+    hook = hpipe.pose.register_forward_hook(lambda m, i, o: maps.append(o))
+    try:
+        with counted:
+            hpacked = hpipe.infer_serving(batch16, height, thres)
+    finally:
+        hook.remove()
+    assert counted.last == dict.fromkeys(KERNELS, 1), counted.last
+    assert hpacked.shape == (batch, 3, 23) and np.isfinite(hpacked).all()
+    hm = maps[0].contiguous()
+    assert tuple(hm.shape) == (3 * batch, 17, 192, 144), hm.shape
+    kp, sc = k.decode_heatmaps(hm)
+    kp_p, sc_p = k.decode_heatmaps_plain(hm)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, kp_p) and torch.equal(sc, sc_p), \
+        "decode [48,17,192,144]: kernel differs from plain"
+    hm_nan = hm.clone()
+    hm_nan[0, 3] = float("nan")                       # an all-NaN map
+    hm_nan[1, 1, 100, 70] = float("nan")              # one NaN in a map
+    hm_nan[2, 2, 191, 143] = float("inf")             # +inf alone, last
+    kp_n, sc_n = k.decode_heatmaps(hm_nan)
+    kp_pn, sc_pn = k.decode_heatmaps_plain(hm_nan)
+    torch.cuda.synchronize()
+    assert int(sc_pn.isnan().sum()) == 2
+    assert torch.equal(kp_n, kp_pn) and torch.equal(sc_n.isnan(),
+                                                    sc_pn.isnan())
+    assert torch.equal(torch.nan_to_num(sc_n, nan=0.0),
+                       torch.nan_to_num(sc_pn, nan=0.0))
+    log(f"phase D: HigherHRNet pose slot at B=16 (/health "
+        f"{hpipe.weights_origin}, the goldens' seeded HigherHRNet loaded): "
+        f"launches {counted.last}; decode [48,17,192,144] (15 bulk-copy "
+        f"chunks a map) equals plain on the forward's own maps and with NaN "
+        f"maps")
+
+    # 5. the registry's higherhrnet (the pose slot's module) over HTTP
+    # binary_tensor_data and hbpe gRPC: each request one launch, equal to
+    # the forward of its rows zero-padded to the launch bucket
+    missing = grpc_modules()
+    happ = srv.ServingApp(hpipe)
+    grpc_server = None
+    rng = np.random.default_rng(5)
+    requests = [rng.uniform(0, 1, (r, 3, 384, 288)).astype(np.float32)
+                for r in (1, 2, 3)]
+    with served(happ) as port:
+        http = HttpClient("127.0.0.1", port)
+        clients = {"http": http.infer}
+        if not missing:
+            from human_body_proportion_estimation_tpu_torch.serve.grpc_server import (  # noqa: E501
+                GrpcClient,
+                create_grpc_server,
+            )
+
+            grpc_server, gport = create_grpc_server(happ, "127.0.0.1", 0)
+            grpc_server.start()
+            hbpe = GrpcClient(f"127.0.0.1:{gport}")
+            clients["hbpe"] = hbpe.infer
+        try:
+            index = {r["name"]: r["weights"] for r in http.models()["models"]}
+            assert index["higherhrnet"] == "random", index
+            meta = http.model_metadata("higherhrnet")
+            assert [t["shape"] for t in meta["outputs"]] == [
+                [-1, 34, -1, -1], [-1, 17, -1, -1]], meta
+            for via, infer in clients.items():
+                for x in requests:
+                    with counted:
+                        got = infer("higherhrnet", {"input": x})
+                    assert counted.last == dict.fromkeys(KERNELS, 0)
+                    b = _pad_batch(len(x), cfg.serve.max_batch)
+                    xp = np.concatenate([x, np.zeros((b - len(x),) + x.shape[1:],
+                                                     np.float32)])
+                    with torch.inference_mode():
+                        ref = hpipe.pose.higher(torch.from_numpy(xp).to(dev))
+                    for name in ("output_1", "output_2"):
+                        np.testing.assert_array_equal(
+                            got[name], ref[name][:len(x)].cpu().numpy(),
+                            err_msg=f"{via} {name} rows {len(x)}")
+        finally:
+            if grpc_server is not None:
+                hbpe.close()
+                grpc_server.stop(0)
+    log(f"phase D: registry higherhrnet over {', '.join(clients)}: requests "
+        f"of 1, 2 and 3 rows at 384x288, each equal to the forward of its "
+        f"rows zero-padded to the launch bucket (output_1 [n,34,96,72], "
+        f"output_2 [n,17,192,144])")
+
+    # 6. the CLIs in subprocesses: in process, then with -g against the
+    # Lite0 server's gRPC edge (edetlite4 runs the serving Lite0, hrnet the
+    # certified W32, higherhrnet a seeded random HigherHRNet); each remote
+    # answer against the registry's forward here at the same batch size
+    scene = os.path.join(DATA, slots.SCENES[0])
+    local = {f"detect_edet {d}": cli_process(repo, "detect_edet", scene,
+                                        ["--detector", d])
+             for d in ("efficientdet_lite4", "efficientdet_lite0")}
+    local.update({f"pose_est {m}": cli_process(repo, "pose_est", scene,
+                                          ["--model", m])
+                  for m in ("hrnet_w32", "hrnet_w48", "higherhrnet")})
+    printed = {what: cli_output(p, what) for what, p in local.items()}
+    for what, out in printed.items():
+        if what.startswith("pose_est"):
+            shape = [17, 192, 144] if "higher" in what else [17, 96, 72]
+            assert out[0] == shape, (what, out[0])
+    lapp = srv.ServingApp(lpipe)
+    remote = {}
+    if not missing:
+        grpc_server, gport = create_grpc_server(lapp, "127.0.0.1", 0)
+        grpc_server.start()
+        target = f"127.0.0.1:{gport}"
+        try:
+            procs = {
+                "edetlite4": cli_process(repo, "detect_edet", scene,
+                                    ["-g", target]),
+                "hrnet": cli_process(repo, "pose_est", scene,
+                                ["--model", "hrnet_w32", "-g", target]),
+                "higherhrnet": cli_process(repo, "pose_est", scene,
+                                      ["--model", "higherhrnet", "-g",
+                                       target]),
+            }
+            remote = {name: cli_output(p, f"-g {name}")
+                      for name, p in procs.items()}
+            img = images[0]
+            with counted:
+                raw = lapp.registry.infer("edetlite4", {"image": img[None]})
+            want = [(int(c), float(s), b) for b, s, c in zip(
+                raw["output_0"][0], raw["output_1"][0], raw["output_2"][0])
+                if s > 0 and s >= 0.6]
+            got = remote["edetlite4"]
+            assert len(got) == len(want), (got, want)
+            for (gc, gs, gb), (wc, ws, wb) in zip(got, want):
+                assert gc == wc and abs(gs - ws) <= 1e-6, (got, want)
+                assert np.abs(np.asarray(gb) - wb).max() <= 1e-3, (gb, wb)
+            for name, out, size in (("hrnet", "output", (288, 384)),
+                                    ("higherhrnet", "output_2", (512, 512))):
+                x = preprocess_crop_host(img, *size)[None].transpose(
+                    0, 3, 1, 2)
+                hm_reg = lapp.registry.infer(name, {"input": np.ascontiguousarray(
+                    x)})[out][0]
+                flat = hm_reg.reshape(17, -1)
+                idx = flat.argmax(-1)
+                kp_want = [[int(i % hm_reg.shape[-1]),
+                            int(i // hm_reg.shape[-1])] for i in idx]
+                g_shape, g_kp, g_sc = remote[name]
+                assert g_shape == list(hm_reg.shape), (name, g_shape)
+                assert g_kp == kp_want, (name, g_kp, kp_want)
+                assert np.abs(np.asarray(g_sc) - flat.max(-1)).max() <= 1e-6
+        finally:
+            grpc_server.stop(0)
+    lapp.shutdown()
+    log(f"phase D: the CLIs exit 0 in process: "
+        + "; ".join(f"{w}: " + (f"{len(o)} detections" if "detect" in w
+                                else f"heatmaps {o[0]}")
+                    for w, o in printed.items())
+        + ("" if missing else
+           f"; with -g: edetlite4 {len(remote['edetlite4'])} detections, "
+           "hrnet and higherhrnet keypoints and scores, each equal to the "
+           "registry's forward here at batch size 1"))
+
+    # 7. times: the serving forward, Lite0 beside Lite4 in turns; the
+    # kernels at the new shapes, replayed from a CUDA graph, beside their
+    # bounds and the library call
+    rates = {"efficientdet_lite0": [], "efficientdet_lite4": []}
+    for _ in range(2):
+        rates["efficientdet_lite4"].append(imgs_per_s(lite4_pipe, batch16,
+                                                      height, thres))
+        rates["efficientdet_lite0"].append(imgs_per_s(lpipe, batch16,
+                                                      height, thres))
+    a, c, f = 9, 90, 64
+
+    def library(zs):
+        for z in zs:
+            torch.matmul(z, w_cls.t()).view(*z.shape[:3], a, c).amax(-1)
+
+    times = {}
+    for name, zs in (("B=16", zs16), ("B=1", zs1)):
+        m_rows = sum(z.shape[0] * z.shape[1] * z.shape[2] for z in zs)
+        b_ms, b_by = bound(m_rows * f * 2 + w_cls.numel() * 2
+                           + b_cls.numel() * 4 + 2 * m_rows * a * 4,
+                           2.0 * m_rows * f * a * c, BF16_FLOP_PER_S)
+        times[f"head_score F=64 {name}"] = dict(
+            graph_ms=graph_ms(lambda zs=zs: k.head_score_levels(
+                zs, w_cls, b_cls, a, c, 0), 20),
+            ms=cuda_ms(lambda zs=zs: k.head_score_levels(
+                zs, w_cls, b_cls, a, c, 0), 50),
+            bound_ms=b_ms, bound_by=b_by,
+            library_graph_ms=graph_ms(lambda zs=zs: library(zs), 20),
+            plain_ms=cuda_ms(lambda zs=zs: k.head_score_levels_plain(
+                zs, w_cls, b_cls, a, c, 0), 10))
+    b_ms, b_by = bound(hm.numel() * 4 + kp.numel() * 4 + sc.numel() * 4,
+                       hm.numel(), F32_FLOP_PER_S)
+    times["decode [48,17,192,144]"] = dict(
+        graph_ms=graph_ms(lambda: k.decode_heatmaps(hm), 100),
+        ms=cuda_ms(lambda: k.decode_heatmaps(hm), 200),
+        bound_ms=b_ms, bound_by=b_by,
+        library_graph_ms=graph_ms(lambda: torch.max(hm.flatten(2), -1), 100),
+        plain_ms=cuda_ms(lambda: k.decode_heatmaps_plain(hm), 20))
+    log(f"phase D: infer_serving B=16 imgs/s in turns: {json.dumps(rates)}")
+    log(f"phase D kernel times (ms; graph = replayed from a CUDA graph, "
+        f"library = matmul+amax / torch.max): {json.dumps(times)}")
+    log(f"phase D card: {card_line()}")
+    log(f"phase D: {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{counted.total}")
+    return counted.total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -1849,13 +2302,15 @@ def main() -> int:
         run_cli(golden, os.path.abspath(args.repo))
         wire_launches = run_registry_and_wire(k, pipe, golden, scene_bytes)
         yolo_launches = run_yolo(k, dev, pipe, os.path.abspath(args.repo))
+        slot_launches = run_other_slots(k, dev, pipe,
+                                        os.path.abspath(args.repo))
         # the kernels line counts the launches of every path driven: the
         # main path (phase 3), the serving edge (A), the registry and wire
-        # protocols (C) and the YOLO slot (Y), each counted from 0 just
-        # before it
+        # protocols (C), the YOLO slot (Y) and the other slots (D), each
+        # counted from 0 just before it
         launches = {name: launches[name] + edge["launches"][name]
                     + wire_launches[name] + yolo_launches[name]
-                    for name in launches}
+                    + slot_launches[name] for name in launches}
         if args.edge_sweep:
             edge_sweep(pipe, golden, scene_bytes)
     sources = {"decode_heatmaps": "decode_heatmaps.cu",

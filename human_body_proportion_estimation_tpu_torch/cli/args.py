@@ -3,10 +3,10 @@
 `modules/utils.py:85-113`), so one command line works with either package.
 
 The `-g/--grpc_port` flag keeps the reference's Triton-port semantics:
-`detect_yolo` dials the serving edge's named model over the tensor-level
-ModelInfer RPC (serve/registry.py); without it, and in `detect_pose`
-(which ignores it in the JAX package too), the models run in-process on
-the GPU.
+`pose_est`, `detect_edet` and `detect_yolo` dial the serving edge's named
+model over the tensor-level ModelInfer RPC (serve/registry.py); without
+it, and in `detect_pose` (which ignores it in the JAX package too), the
+models run in-process on the GPU.
 """
 
 from __future__ import annotations
@@ -52,10 +52,11 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    help="subject height in cm for pixel->cm scaling")
     p.add_argument("-g", "--grpc_port", default=None,
                    help="serving-edge gRPC port or host:port — when set, "
-                        "detect_yolo calls the named model over the "
-                        "tensor-level ModelInfer RPC instead of running "
-                        "in-process (the reference's Triton-port "
-                        "semantics); detect_pose ignores it")
+                        "pose_est, detect_edet, and detect_yolo call the "
+                        "named model over the tensor-level ModelInfer RPC "
+                        "instead of running in-process (the reference's "
+                        "Triton-port semantics); the remaining CLIs "
+                        "ignore it")
     p.add_argument("--detector", default="efficientdet_lite4",
                    choices=("efficientdet_lite4", "efficientdet_lite0"))
     p.add_argument("--checkpoint-dir", default=None)

@@ -12,18 +12,18 @@ from human_body_proportion_estimation_tpu_torch.pipeline.host import (
 # detector slots the port has not ported yet, and the ROADMAP.md item of each
 NOT_PORTED_DETECTORS = {
     "ssd_mobilenet": "item 10 (SSD)",
-    "efficientdet_lite0": "item 12 (EfficientDet-Lite0)",
 }
 
 
 def build_pipeline(args=None) -> InferencePipeline:
-    """Pipeline for the top-down CLIs, on the GPU: the committed
-    synthetic-certified EfficientDet-Lite4 + HRNet-W32 weights (the JAX
-    package's default when no --checkpoint-dir is given), or, for
-    `--detector yolov5s|yolov5m`, a YOLOv5 detector at random (no YOLO
-    weights are in the repository; /health and the log say "random")
-    before the certified HRNet-W32. Options the port does not serve yet
-    exit with code 2 and the ROADMAP.md item that brings them."""
+    """Pipeline for the top-down CLIs, on the GPU, with the JAX package's
+    default weights when no --checkpoint-dir is given: the committed
+    synthetic-certified HRNet-W32 pose, before the certified
+    EfficientDet-Lite4, or, for `--detector efficientdet_lite0` (and the
+    YOLOv5 slots), a detector at random from a seeded torch.Generator (no
+    weights for it are in the repository; /health and the log say
+    "random"). Options the port does not serve yet exit with code 2 and
+    the ROADMAP.md item that brings them."""
     not_yet = []
     if getattr(args, "checkpoint_dir", None):
         not_yet.append("--checkpoint-dir (orbax checkpoints): ROADMAP.md "

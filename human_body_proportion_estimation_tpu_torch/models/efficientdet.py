@@ -45,6 +45,7 @@ from human_body_proportion_estimation_tpu_torch.models.anchors import (
     generate_anchors,
 )
 from human_body_proportion_estimation_tpu_torch.models.efficientnet_lite import (
+    LITE0,
     LITE4,
     EfficientNetLite,
     EfficientNetLiteConfig,
@@ -75,6 +76,9 @@ class EfficientDetConfig:
 
 
 EFFICIENTDET_LITE4 = EfficientDetConfig()
+EFFICIENTDET_LITE0 = EfficientDetConfig(
+    backbone=LITE0, fpn_channels=64, fpn_repeats=3, head_repeats=3
+)
 
 
 class ResampleDown(nn.Module):
@@ -312,7 +316,7 @@ def person_slots(
 
 def postprocess(
     cls_logits: torch.Tensor,     # [N, C] class logits of one image
-    box_regs: torch.Tensor,       # [N, 4]
+    box_regs: torch.Tensor,       # [N, 4]       (or [B, N, ...]: a batch)
     image_hw: Tuple[int, int],
     anchors: torch.Tensor,        # [N, 4] (cy, cx, h, w)
     config: EfficientDetConfig = EFFICIENTDET_LITE4,
@@ -322,6 +326,7 @@ def postprocess(
     """Canonical head outputs -> the reference's detection tensors for one
     image: (boxes [100, 4] pixel yxyx, scores [100], classes [100] 1-based,
     valid [100]) (the served SavedModel's outputs, `models/conv.py:16-18`).
+    A batch ([B, N, C] logits) gets [B, 100, ...] back from ONE NMS sweep.
 
     sigmoid is monotone, so the class max and argmax are taken over the
     logits and only the winner is activated. `anchors` lie on the logits'
@@ -335,9 +340,9 @@ def postprocess(
 
 
 def postprocess_prescored(
-    best_logit: torch.Tensor,     # [N] winning-class logit per anchor
-    best_class: torch.Tensor,     # [N] winning class (0-based int)
-    box_regs: torch.Tensor,       # [N, 4]
+    best_logit: torch.Tensor,     # [(B,) N] winning-class logit per anchor
+    best_class: torch.Tensor,     # [(B,) N] winning class (0-based int)
+    box_regs: torch.Tensor,       # [(B,) N, 4]
     image_hw: Tuple[int, int],
     config: EfficientDetConfig = EFFICIENTDET_LITE4,
     score_threshold: float = 0.0,
@@ -358,13 +363,13 @@ def postprocess_prescored(
                          device=boxes_yxyx.device)
     boxes_yxyx = boxes_yxyx.clamp_min(0.0).minimum(limit)
     # the NMS takes xyxy: swap, run class-wise NMS, swap back
-    boxes_xyxy = boxes_yxyx[:, [1, 0, 3, 2]]
+    boxes_xyxy = boxes_yxyx[..., [1, 0, 3, 2]]
     masked_scores = torch.where(best_score > score_threshold, best_score, 0.0)
     res = nms_ops.nms_fixed(
         boxes_xyxy, masked_scores, iou_threshold=iou_threshold,
         max_det=config.max_detections, top_k=top_k,
         classes=best_class.float(), class_agnostic=False,
     )
-    out_yxyx = res.boxes[:, [1, 0, 3, 2]]
+    out_yxyx = res.boxes[..., [1, 0, 3, 2]]
     classes_1based = torch.where(res.valid, res.classes + 1.0, 0.0)
     return out_yxyx, res.scores, classes_1based, res.valid

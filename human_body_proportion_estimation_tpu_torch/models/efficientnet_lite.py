@@ -1,7 +1,7 @@
 """EfficientNet-Lite backbone (port of the JAX package's
 `models/efficientnet_lite.py`): ReLU6 everywhere, no squeeze-excite, fixed
-stem/head; Lite4 = width 1.4 / depth 1.8. Returns C3 (stride 8), C4
-(stride 16) and C5 (stride 32).
+stem/head; Lite0 = width 1.0 / depth 1.0, Lite4 = width 1.4 / depth 1.8.
+Returns C3 (stride 8), C4 (stride 16) and C5 (stride 32).
 
 BN epsilon is 1e-3 throughout the EfficientNet/EfficientDet family (the
 checkpoints' moving statistics assume it); stride-2 convs use TF "SAME"
@@ -65,6 +65,7 @@ class EfficientNetLiteConfig:
         return tuple(out)
 
 
+LITE0 = EfficientNetLiteConfig(1.0, 1.0)
 LITE4 = EfficientNetLiteConfig(1.4, 1.8)
 
 

@@ -1,4 +1,5 @@
-"""HRNet top-down pose model (port of the JAX package's `models/hrnet.py`).
+"""HRNet top-down pose model, W32 / W48 (port of the JAX package's
+`models/hrnet.py`).
 
   stem (2x stride-2 3x3)  -> 1/4 resolution
   layer1: 4 bottlenecks   -> 256 ch
@@ -49,6 +50,7 @@ class HRNetConfig:
 
 
 HRNET_W32 = HRNetConfig(width=32)
+HRNET_W48 = HRNetConfig(width=48)
 
 
 class FuseLayer(nn.Module):
@@ -146,8 +148,11 @@ class Transition(nn.Module):
         return outs
 
 
-class HRNet(nn.Module):
-    """Pose HRNet: [N, 3, H, W] in [0,1] -> [N, K, H/4, W/4] heatmaps."""
+class HRNetTrunk(nn.Module):
+    """The stem, layer1 and stages 2-4 shared by `HRNet` and
+    `models/higherhrnet.HigherHRNet` (the flax modules name these layers
+    alike, so one converter covers both): [N, 3, H, W] in [0, 1] ->
+    branch 0 features [N, W, H/4, W/4] in the compute dtype."""
 
     def __init__(self, config: HRNetConfig = HRNET_W32,
                  dtype: torch.dtype = torch.bfloat16):
@@ -171,10 +176,8 @@ class HRNet(nn.Module):
                 self.add_module(f"stage{s + 2}_module{m}",
                                 HRModule(channels, cfg.blocks_per_branch))
             prev = channels
-        self.head = Conv2d(cfg.branch_channels[-1][0], cfg.num_keypoints, 1,
-                           bias=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def features(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
         x = self.stem2(self.stem1(x.to(self.dtype)))
         for k in range(4):
@@ -187,7 +190,24 @@ class HRNet(nn.Module):
                 last = s == n_stages - 1 and m == n_modules - 1
                 xs = getattr(self, f"stage{s + 2}_module{m}")(
                     xs, 1 if last else None)
+        return xs[0]
+
+
+class HRNet(HRNetTrunk):
+    """Pose HRNet: [N, 3, H, W] in [0,1] -> [N, K, H/4, W/4] heatmaps."""
+
+    def __init__(self, config: HRNetConfig = HRNET_W32,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(config, dtype)
+        self.head = Conv2d(config.branch_channels[-1][0],
+                           config.num_keypoints, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
         # f32 head for a stable argmax (flax computes it in f32 too); on
         # CUDA this needs cudnn TF32 off (pipeline/host.py sets it)
-        return self.head(xs[0].float())
+        return self.head(self.features(x).float())
 
+
+def create_hrnet(name: str = "hrnet_w32", **kwargs) -> HRNet:
+    cfg = {"hrnet_w32": HRNET_W32, "hrnet_w48": HRNET_W48}[name]
+    return HRNet(config=cfg, **kwargs)

@@ -21,6 +21,7 @@ uses symmetric (k-1)//2 padding instead (`same=False`, flax
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -161,3 +162,28 @@ class SeparableConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = batch_norm(self.bn, self.pointwise(self.depthwise(x)))
         return x if self.act is None else self.act(x)
+
+
+def init_random(model: nn.Module) -> nn.Module:
+    """Re-initialize every parameter and statistic of `model` from an
+    explicit `torch.Generator` seeded with 0, the way torch
+    initializes fresh layers (conv and transposed-conv weights
+    Kaiming-uniform with a = sqrt(5), biases uniform in +-fan_in^-1/2,
+    BatchNorm at unit scale, zero shift, mean 0, variance 1): the random
+    model a slot serves when it is given no weights, the same on every
+    call and machine."""
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = torch.empty(module.weight.shape)
+                nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=g)
+                module.weight.copy_(w)
+                if module.bias is not None:
+                    bound = (w[0].numel()) ** -0.5
+                    b = torch.empty(module.bias.shape).uniform_(
+                        -bound, bound, generator=g)
+                    module.bias.copy_(b)
+            elif isinstance(module, nn.BatchNorm2d):
+                module.reset_parameters()
+    return model

@@ -9,6 +9,11 @@ The port names its modules after the flax modules, so a flax leaf path maps
 to a `state_dict` key one to one:
   params/.../kernel  [kh, kw, in, out] (HWIO)   -> .../weight  OIHW
                      depthwise [kh, kw, 1, C]   -> .../weight  [C, 1, kh, kw]
+  params/.../deconv/kernel (flax ConvTranspose, [kh, kw, in, out],
+                     unflipped)                 -> .../deconv.weight
+                     [in, out, kh, kw], spatially flipped (torch's
+                     transposed conv is the adjoint of a conv; the JAX
+                     package's `_deconv_to_torch`, weights.py:338)
   params/.../bias                               -> .../bias
   params/.../scale   (BatchNorm)                -> .../weight
   batch_stats/.../mean, var                     -> .../running_mean, running_var
@@ -20,11 +25,14 @@ raises.
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -64,6 +72,8 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
 
 
 _PARAM_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
+# flax modules that are transposed convs (HigherHRNet's `deconv`)
+_TRANSPOSED_CONVS = ("deconv",)
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -77,7 +87,9 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             arr = np.array(leaf, np.float32)  # a writable copy
             if path[-1] not in mapping:
                 raise KeyError(f"{collection}/{'/'.join(path)}: unknown leaf")
-            if path[-1] == "kernel":
+            if path[-1] == "kernel" and path[-2] in _TRANSPOSED_CONVS:
+                arr = np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+            elif path[-1] == "kernel":
                 arr = np.transpose(arr, (3, 2, 0, 1))   # HWIO -> OIHW
             key = ".".join(path[:-1] + (mapping[path[-1]],))
             if key in sd:
@@ -88,3 +100,113 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                     torch.zeros((), dtype=torch.long))
     return sd
 
+
+
+@contextlib.contextmanager
+def _calibrating_batch_norm():
+    """While inside, every inference BatchNorm of the port (all go through
+    `F.batch_norm`, `models/layers.batch_norm`) first sets its running
+    mean to its input's per-channel mean and its running variance to the
+    per-channel variance, floored at that layer's mean variance."""
+    plain = F.batch_norm
+
+    def calibrate(x, mean, var, *args, **kwargs):
+        dims = [d for d in range(x.dim()) if d != 1]
+        v = x.var(dims)
+        mean.copy_(x.mean(dims))
+        var.copy_(v.clamp_min(float(v.mean())))
+        return plain(x, mean, var, *args, **kwargs)
+
+    F.batch_norm = calibrate
+    try:
+        yield
+    finally:
+        F.batch_norm = plain
+
+
+def seeded_state(
+    model: nn.Module,
+    seed: int,
+    calibrate: Callable[[nn.Module], Any],
+    heads: Sequence[str] = (),
+    bias: Optional[Mapping[str, float]] = None,
+) -> Dict[str, np.ndarray]:
+    """A random `state_dict` for `model` (f32 numpy) made from
+    `np.random.default_rng(seed)` and calibrated by `calibrate(model)`, a
+    forward of the float64 model on the CPU over the inputs it will see.
+
+    1. Draws, key after key in the module's order: LeCun-normal conv and
+       transposed-conv weights (std fan_in^-1/2, fan_in the inputs one
+       output sums over at stride 1, as flax initializes them), BatchNorm
+       scales uniform in [0.5, 1.5] and shifts normal with mean 1 and std
+       0.1, conv biases 0. The shifts keep most units of the ReLU / ReLU6
+       that follow in their linear range: a calibrated network whose
+       units are cut half the time amplifies rounding by ~1.2x a layer
+       (EfficientDet-Lite0's f32 logits were 1.1e-3 off its float64 ones
+       at shift 0, 2.7e-5 at shift 1), and two f32 stacks could then not
+       be held to each other.
+    2. Calibrates: in the forward, every BatchNorm's running statistics
+       become its input's per-channel mean and variance (the variance
+       floored at the layer's mean), so that every normalized activation
+       has the drawn scale and shift on these inputs: a deep random
+       network's signal dies out or grows by orders of magnitude on the
+       way to its heads otherwise. Each module named in `heads` then has
+       its weight divided by its outputs' standard deviation there.
+    3. Adds `bias[key]` to every entry of the bias tensor `key`.
+
+    float64 on the CPU makes the result the same on every machine to far
+    below what an f32 forward can resolve (the heads that compute in f32
+    whatever the trunk's dtype are calibrated in f32). The same recipe as
+    `models/yolo_weights.seeded_state`, for any module of the port."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for key, value in model.state_dict().items():
+        module_name, leaf = key.rsplit(".", 1)
+        module, shape = model.get_submodule(module_name), tuple(value.shape)
+        if leaf == "num_batches_tracked":
+            state[key] = np.zeros(shape, np.int64)
+        elif isinstance(module, nn.BatchNorm2d) and leaf == "weight":
+            state[key] = rng.uniform(0.5, 1.5, shape)
+        elif isinstance(module, nn.BatchNorm2d) and leaf == "bias":
+            state[key] = rng.normal(1.0, 0.1, shape)
+        elif leaf == "weight":
+            fan_in = int(np.prod(shape[1:]))
+            if isinstance(module, nn.ConvTranspose2d):
+                fan_in = shape[0] * shape[2] * shape[3] // (
+                    module.stride[0] * module.stride[1])
+            state[key] = rng.normal(0.0, fan_in ** -0.5, shape)
+        elif leaf == "running_var":
+            state[key] = np.ones(shape)
+        else:       # conv biases, running means
+            state[key] = np.zeros(shape)
+    model = model.to(device="cpu", dtype=torch.float64).eval()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+
+    moments: Dict[str, list] = {name: [0.0, 0.0, 0] for name in heads}
+
+    def record(name, out):
+        out = out.double()
+        m = moments[name]
+        m[0] += float(out.sum())
+        m[1] += float((out * out).sum())
+        m[2] += out.numel()
+
+    hooks = [model.get_submodule(name).register_forward_hook(
+        lambda mod, i, o, name=name: record(name, o)) for name in heads]
+    try:
+        with torch.no_grad(), _calibrating_batch_norm():
+            calibrate(model)
+    finally:
+        for h in hooks:
+            h.remove()
+    out: Dict[str, np.ndarray] = {}
+    for key, value in model.state_dict().items():
+        arr = value.numpy().copy()
+        module_name = key.rsplit(".", 1)[0]
+        if module_name in moments and key.endswith(".weight"):
+            s1, s2, n = moments[module_name]
+            arr /= np.sqrt(s2 / n - (s1 / n) ** 2)
+        if bias and key in bias:
+            arr += bias[key]
+        out[key] = arr if arr.dtype == np.int64 else arr.astype(np.float32)
+    return out

@@ -31,9 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from human_body_proportion_estimation_tpu_torch.models.layers import (
+# init_random is re-exported: the YOLO callers take it from this module
+from human_body_proportion_estimation_tpu_torch.models.layers import (  # noqa: F401
     Conv2d,
     ConvBN,
+    init_random,
     upsample_nearest,
 )
 
@@ -180,31 +182,6 @@ class YoloV5(nn.Module):
 
         return [getattr(self, f"detect{li}")(feat.float()).permute(0, 2, 3, 1)
                 for li, feat in enumerate((out3, out4, out5))]
-
-
-def init_random(model: nn.Module) -> nn.Module:
-    """Re-initialize every parameter and statistic of `model` from an
-    explicit `torch.Generator` seeded with 0, the way torch
-    initializes fresh layers (conv weights Kaiming-uniform with
-    a = sqrt(5), conv biases uniform in +-fan_in^-1/2, BatchNorm at unit
-    scale, zero shift, mean 0, variance 1): the random detector a slot
-    serves when it is given no weights, the same on every call and
-    machine."""
-    g = torch.Generator().manual_seed(0)
-    with torch.no_grad():
-        for module in model.modules():
-            if isinstance(module, nn.Conv2d):
-                w = torch.empty(module.weight.shape)
-                nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=g)
-                module.weight.copy_(w)
-                if module.bias is not None:
-                    bound = (w[0].numel()) ** -0.5
-                    b = torch.empty(module.bias.shape).uniform_(
-                        -bound, bound, generator=g)
-                    module.bias.copy_(b)
-            elif isinstance(module, nn.BatchNorm2d):
-                module.reset_parameters()
-    return model
 
 
 def _grid(head: torch.Tensor, anchors) -> Tuple[torch.Tensor, ...]:

@@ -1,12 +1,16 @@
-"""Detection-only forward of the YOLOv5 path (port of the YOLO half of the
-JAX package's `pipeline/detect.py`; `EdetDetectPipeline` comes with ROADMAP
-item 12).
+"""Detection-only forwards, EfficientDet and YOLOv5 (port of the JAX
+package's `pipeline/detect.py`).
 
-The reference's standalone YOLOv5 demos (`obj_det_yolov5_trtserver.py` /
-`obj_det_yolov5_onnx.py`): letterboxed 640x640 float input ->
-anchor-decoded predictions -> class-offset NMS -> boxes scaled back to the
-original image (xyxy + conf + class, reference onnx_utils.py NMS +
-scale_coords). The batch's NMS is one sweep kernel launch on CUDA.
+Mirrors the reference's standalone detector demos:
+  * EfficientDet path (`obj_det_edet4_trtserver.py`): uint8 image at the
+    model size -> 100 detection slots (pixel y1x1y2x2 + scores + 1-based
+    classes), the "modified" SavedModel output schema (:22-37), through
+    the canonical all-class head and `models/efficientdet.postprocess`.
+  * YOLOv5 path (`obj_det_yolov5_trtserver.py` / `obj_det_yolov5_onnx.py`):
+    letterboxed 640x640 float input -> anchor-decoded predictions ->
+    class-offset NMS -> boxes scaled back to the original image (xyxy +
+    conf + class, reference onnx_utils.py NMS + scale_coords).
+A batch's NMS is one sweep kernel launch on CUDA, on either path.
 """
 
 from __future__ import annotations
@@ -16,6 +20,13 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from human_body_proportion_estimation_tpu_torch.models.anchors import (
+    generate_anchors,
+)
+from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
+    EfficientDet,
+    postprocess as edet_postprocess,
+)
 from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
     YoloV5,
     decode_predictions,
@@ -32,6 +43,34 @@ class Detections(NamedTuple):
     scores: torch.Tensor   # [B, N]
     classes: torch.Tensor  # [B, N]
     valid: torch.Tensor    # [B, N] bool
+
+
+class EdetDetectPipeline:
+    """uint8 [B, H, W, 3] at `input_hw` -> 100 yxyx pixel detections a
+    image (1-based classes), on the detector's device."""
+
+    def __init__(self, detector: EfficientDet, input_hw: Tuple[int, int],
+                 iou_threshold: float = 0.5, top_k: int = 128):
+        self.detector = detector
+        self.input_hw = input_hw
+        self.iou_threshold = iou_threshold
+        self.top_k = top_k
+        device = next(detector.parameters()).device
+        self.anchors = torch.from_numpy(generate_anchors(
+            detector.config.anchors, *input_hw)).to(device)
+
+    @torch.inference_mode()
+    def forward(self, images: torch.Tensor) -> Detections:
+        cls_logits, box_regs = self.detector(images.float(),
+                                             all_classes=True)
+        boxes, scores, classes, valid = edet_postprocess(
+            cls_logits, box_regs, self.input_hw, self.anchors,
+            self.detector.config, iou_threshold=self.iou_threshold,
+            top_k=self.top_k,
+        )
+        return Detections(boxes, scores, classes, valid)
+
+    __call__ = forward
 
 
 class YoloDetectPipeline:

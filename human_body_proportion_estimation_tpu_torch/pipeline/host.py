@@ -20,14 +20,22 @@ import numpy as np
 import torch
 
 from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
+    EFFICIENTDET_LITE0,
     EFFICIENTDET_LITE4,
     EfficientDet,
     EfficientDetConfig,
 )
+from human_body_proportion_estimation_tpu_torch.models.higherhrnet import (
+    HigherHRNetHeatmaps,
+)
 from human_body_proportion_estimation_tpu_torch.models.hrnet import (
     HRNET_W32,
+    HRNET_W48,
     HRNet,
     HRNetConfig,
+)
+from human_body_proportion_estimation_tpu_torch.models.layers import (
+    init_random,
 )
 from human_body_proportion_estimation_tpu_torch.models.weights import (
     default_certified_checkpoint,
@@ -37,7 +45,6 @@ from human_body_proportion_estimation_tpu_torch.models.weights import (
 from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
     VARIANTS,
     YoloV5,
-    init_random,
 )
 from human_body_proportion_estimation_tpu_torch.ops import (
     proportions as prop_ops,
@@ -56,6 +63,12 @@ from human_body_proportion_estimation_tpu_torch.utils.config import (
 from human_body_proportion_estimation_tpu_torch.utils.logging import (
     get_logger,
 )
+
+
+# the pose slots (`PoseConfig.name`) and the HRNet configuration of each
+# (HigherHRNet's trunk is HRNet-W32, as in the JAX package)
+POSE_CONFIGS = {"hrnet_w32": HRNET_W32, "hrnet_w48": HRNET_W48,
+                "higherhrnet": HRNET_W32}
 
 
 def decode_image_bytes(data: bytes) -> np.ndarray:
@@ -169,21 +182,27 @@ class InferencePipeline:
     the host.
 
     `detector`: the detector slot, `cfg.detector.name` by default:
-    "efficientdet_lite4", or "yolov5s" / "yolov5m" / "yolov5l" (the JAX
-    package's `YoloBackend`). The other JAX slots are not ported yet and
-    raise ValueError.
+    "efficientdet_lite4", "efficientdet_lite0", or "yolov5s" / "yolov5m" /
+    "yolov5l" (the JAX package's `YoloBackend`). "ssd_mobilenet" is not
+    ported yet and raises ValueError. The EfficientDet architecture comes
+    from the slot name unless `det_config` is given, as in the JAX
+    package, so that a Lite0 slot never gets the Lite4 graph.
+
+    The pose slot is `cfg.pose.name`: "hrnet_w32", "hrnet_w48" or
+    "higherhrnet" (`models.higherhrnet.HigherHRNetHeatmaps`, heatmaps at
+    1/2 the crop); `pose_config` overrides the HRNet configuration of the
+    slot (HigherHRNet's trunk).
 
     `det_state` / `pose_state`: port `state_dict`s (`load_certified_states`,
     or `models.weights.flax_to_state_dict` of flax variables), labelled
-    "real" in `weights_origin` (what /health reports). EfficientDet-Lite4:
-    when either is None, both come from the committed certified checkpoint,
-    which only fits the default (full-width) configs, labelled
-    "synthetic-certified" as the JAX server labels it. YOLOv5: no YOLO
-    weights are in the repository, so a detector without `det_state` is
-    initialized at random from a torch.Generator seeded with 0
-    (`models.yolov5.init_random`), labelled "random", with the JAX
-    package's loud warning; the pose without `pose_state` is the certified
-    HRNet-W32.
+    "real" in `weights_origin` (what /health reports). A slot given no
+    state takes the committed certified checkpoint where its architecture
+    is the certified one (the EfficientDet-Lite4 detector, the HRNet-W32
+    pose), labelled "synthetic-certified" as the JAX server labels it;
+    any other slot (EfficientDet-Lite0, YOLOv5, HRNet-W48, HigherHRNet:
+    no weights for them are in the repository) is initialized at random
+    from a torch.Generator seeded with 0 (`models.layers.init_random`),
+    labelled "random", with the JAX package's loud warning.
 
     `stages`: an optional `utils.profiling.StageTimer` (the serving edge
     attaches one) that `infer_serving` reports its stages to:
@@ -198,8 +217,8 @@ class InferencePipeline:
         det_state: Optional[Mapping[str, torch.Tensor]] = None,
         pose_state: Optional[Mapping[str, torch.Tensor]] = None,
         device: str | torch.device = "cuda",
-        det_config: EfficientDetConfig = EFFICIENTDET_LITE4,
-        pose_config: HRNetConfig = HRNET_W32,
+        det_config: Optional[EfficientDetConfig] = None,
+        pose_config: Optional[HRNetConfig] = None,
         dtype: torch.dtype = torch.bfloat16,
         detector: Optional[str] = None,
     ):
@@ -213,36 +232,60 @@ class InferencePipeline:
             # computes them in full f32.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        if detector in VARIANTS:
-            origin = {"detector": "real", "pose": "real"}
-            if pose_state is None:
-                _, pose_state = load_certified_states()
-                origin["pose"] = "synthetic-certified"
-            model = YoloV5(VARIANTS[detector], dtype=dtype)
-            if det_state is None:
+        certified = []   # the certified (det, pose) states, read once
+
+        def load(model, state, certified_slot):
+            """`state`, else the certified checkpoint's slot
+            `certified_slot` (0 detector, 1 pose; None where the
+            architecture is not the certified one), else random; returns
+            the slot's label."""
+            if state is not None:
+                model.load_state_dict(state, strict=True)
+                return "real"
+            if certified_slot is None:
                 init_random(model)
-                origin["detector"] = "random"
-            else:
-                model.load_state_dict(det_state, strict=True)
+                return "random"
+            if not certified:
+                certified.extend(load_certified_states())
+            model.load_state_dict(certified[certified_slot], strict=True)
+            return "synthetic-certified"
+
+        if detector in VARIANTS:
+            model = YoloV5(VARIANTS[detector], dtype=dtype)
+            det_label = load(model, det_state, None)
             self.backend = YoloBackend(model.to(self.device).eval(), cfg)
-        elif detector == "efficientdet_lite4":
-            label = "real"
-            if det_state is None or pose_state is None:
-                det_state, pose_state = load_certified_states()
-                label = "synthetic-certified"
-            origin = {"detector": label, "pose": label}
+        elif detector in ("efficientdet_lite4", "efficientdet_lite0"):
+            if det_config is None:
+                det_config = (EFFICIENTDET_LITE0
+                              if detector == "efficientdet_lite0"
+                              else EFFICIENTDET_LITE4)
             model = EfficientDet(
                 det_config, dtype=dtype,
                 person_class0=cfg.detector.person_class_id - 1,
             )
-            model.load_state_dict(det_state, strict=True)
+            det_label = load(model, det_state,
+                             0 if det_config == EFFICIENTDET_LITE4 else None)
             self.backend = EfficientDetBackend(
                 model.to(self.device).eval(), cfg, self.device)
         else:
             raise ValueError(
                 f"detector {detector!r} is not ported yet (ROADMAP.md "
-                "item 10: ssd_mobilenet; item 12: efficientdet_lite0)")
-        self.weights_origin = origin
+                "item 10: ssd_mobilenet)")
+
+        pose_name = cfg.pose.name
+        if pose_name not in POSE_CONFIGS:
+            raise ValueError(f"unknown pose model {pose_name!r}")
+        pose_config = pose_config or POSE_CONFIGS[pose_name]
+        if pose_name == "higherhrnet":
+            pose = HigherHRNetHeatmaps(pose_config, dtype=dtype)
+        else:
+            pose = HRNet(pose_config, dtype=dtype)
+        pose_label = load(pose, pose_state, 1 if pose_name == "hrnet_w32"
+                          and pose_config == HRNET_W32 else None)
+        self.pose = pose.to(self.device).eval()
+
+        self.weights_origin = origin = {"detector": det_label,
+                                        "pose": pose_label}
         if "random" in origin.values():
             # the JAX package's warning: random weights give confident-
             # looking garbage, so a slot serving them says so
@@ -255,11 +298,6 @@ class InferencePipeline:
             )
         self.stages = None
         self.prewarmed = False
-
-        pose = HRNet(pose_config, dtype=dtype)
-        pose.load_state_dict(pose_state, strict=True)
-        pose.to(self.device).eval()
-        self.pose = pose
         self.fused = FusedPipeline(cfg, self.backend, pose)
 
     def _stage(self, name: str):

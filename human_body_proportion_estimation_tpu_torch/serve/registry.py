@@ -13,13 +13,16 @@ whose modules it has:
     (``detection_boxes/scores/classes``, ``filtered_boxes``,
     ``human_crops``, reference `models/conv.py:82-86`).
   * ``hrnet`` (`pose_est_hrnet_trtserver.py:22-25`) — ``output`` heatmaps.
+  * ``higherhrnet`` (`pose_est_hrnet_trtserver.py:22-28`) — any-size f32
+    NCHW ``input`` -> ``output_1`` (K heatmaps + K tags at 1/4) and
+    ``output_2`` (K heatmaps at 1/2, the tensor the reference reads).
   * ``yolov5m`` / ``yolov5s`` (`obj_det_yolov5_trtserver.py:53`) —
     ``images`` f32 NCHW [B, 3, 640, 640] (already /255) -> ``output``
     [B, 25200, 85] decoded predictions; the NMS runs on the client.
 
-The JAX package's ``higherhrnet`` and ``ssd_mobilenet`` come with the
-port's other slots (ROADMAP.md items 10 and 12); until then they are not
-registered, so they answer as an unknown name does (NOT_FOUND / 404).
+The JAX package's ``ssd_mobilenet`` comes with the port's SSD slot
+(ROADMAP.md item 10); until then it is not registered, so it answers as
+an unknown name does (NOT_FOUND / 404).
 
 Clients introspect each model's inputs, outputs and max_batch_size before
 building requests (`modules/triton_utils.py:54-72` ``parse_model_grpc``):
@@ -37,10 +40,13 @@ Design notes, as in the JAX package:
     HRNet and EfficientDet modules, so registry inference adds no device
     memory; the detector models run the canonical all-class head of the
     same EfficientDet (`forward(..., all_classes=True)`, f32 class predict
-    conv, greedy NMS through the NMS sweep kernel). A YOLO model shares
-    the serving pipeline's detector when that is the same YOLOv5 variant,
-    else it is built at random from a seeded torch.Generator (no YOLO
-    weights are in the repository), labelled "random".
+    conv, greedy NMS through the NMS sweep kernel), whichever
+    EfficientDet the pipeline serves (Lite4 or Lite0: the JAX registry
+    takes the serving detector's config too). A YOLO model shares the
+    serving pipeline's detector when that is the same YOLOv5 variant, and
+    ``higherhrnet`` the pipeline's HigherHRNet pose when it has one; else
+    each is built at random from a seeded torch.Generator (no YOLO or
+    HigherHRNet weights are in the repository), labelled "random".
   * The no-detection fallback of `models/conv.py:72-79` (a single all-zero
     crop, so HRNet runs on zeros) is kept: invalid person slots are zeroed
     before the pose stage and `human_crops` / heatmaps have max(n, 1) rows.
@@ -660,7 +666,7 @@ def _hrnet_entry(cfg, device, pose=None,
         import torch
 
         from human_body_proportion_estimation_tpu_torch.models.hrnet import (
-            HRNet,
+            create_hrnet,
         )
         from human_body_proportion_estimation_tpu_torch.pipeline.host import (
             _pad_batch,
@@ -668,7 +674,8 @@ def _hrnet_entry(cfg, device, pose=None,
 
         model = pose
         if model is None:
-            model = _standalone(HRNet, fallback, device)
+            model = _standalone(lambda: create_hrnet(cfg.pose.name),
+                                fallback, device)
 
         @torch.inference_mode()
         def run(inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -690,6 +697,67 @@ def _hrnet_entry(cfg, device, pose=None,
         inputs=[TensorSpec("input", "FP32", (-1, 3, ch, cw))],
         outputs=[TensorSpec("output", "FP32",
                             (-1, k, ch // 4, cw // 4))],
+        max_batch_size=max_batch,
+        weights=weights,
+        build=build,
+        batch_timeout_ms=cfg.serve.batch_timeout_ms,
+    )
+
+
+def _higherhrnet_entry(cfg, device, model=None,
+                       weights: str = "random") -> ModelEntry:
+    """`higherhrnet`: f32 NCHW image of any size -> "output_1" (K heatmaps +
+    K AE tags, 1/4 res) and "output_2" (K heatmaps, 1/2 res), the tensor
+    contract the reference reads (pose_est_hrnet_trtserver.py:22-28 uses
+    output_2). `model`: the serving pipeline's HigherHRNet, if its pose
+    slot is one; else the entry builds its own at its first load, at
+    random from a seeded torch.Generator (`models.layers.init_random`:
+    the JAX package's certified bottom-up checkpoint, its fallback, is not
+    in the repository). Rows are padded to the launch bucket as the
+    `hrnet` entry pads them."""
+    k = cfg.pose.num_keypoints
+    max_batch = cfg.serve.max_batch
+
+    def build():
+        import torch
+
+        from human_body_proportion_estimation_tpu_torch.models.higherhrnet import (  # noqa: E501
+            HigherHRNet,
+        )
+        from human_body_proportion_estimation_tpu_torch.models.layers import (
+            init_random,
+        )
+        from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+            _pad_batch,
+        )
+
+        net = model
+        if net is None:
+            net = init_random(HigherHRNet()).to(device).eval()
+
+        @torch.inference_mode()
+        def run(inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+            x = inputs["input"]
+            n = x.shape[0]
+            b = _pad_batch(n, max_batch)  # the serving pipeline's buckets
+            if b != n:
+                x = np.concatenate(
+                    [x, np.zeros((b - n,) + x.shape[1:], x.dtype)]
+                )
+            out = net(_to_device(x, device))
+            return {name: out[name][:n].cpu().numpy()
+                    for name in ("output_1", "output_2")}
+
+        return run
+
+    return ModelEntry(
+        name="higherhrnet",
+        platform="pytorch",
+        inputs=[TensorSpec("input", "FP32", (-1, 3, -1, -1))],
+        outputs=[
+            TensorSpec("output_1", "FP32", (-1, 2 * k, -1, -1)),
+            TensorSpec("output_2", "FP32", (-1, k, -1, -1)),
+        ],
         max_batch_size=max_batch,
         weights=weights,
         build=build,
@@ -922,13 +990,14 @@ def _edet_entries(cfg, det_config, device, detector=None, pose=None,
         import torch
 
         from human_body_proportion_estimation_tpu_torch.models.hrnet import (
-            HRNet,
+            create_hrnet,
         )
 
         _, _, modified = core()
         pmodel = pose
         if pmodel is None:
-            pmodel = _standalone(HRNet, pose_fallback, device)
+            pmodel = _standalone(lambda: create_hrnet(cfg.pose.name),
+                                 pose_fallback, device)
 
         @torch.inference_mode()
         def run(inputs):
@@ -1022,8 +1091,11 @@ def _edet_entries(cfg, det_config, device, detector=None, pose=None,
 def build_registry(pipeline=None, device=None) -> ModelRegistry:
     """The default repository (the reference's model-repo roster, README
     :71-80, less the models of the slots not ported yet), sharing the
-    serving pipeline's HRNet and EfficientDet modules when given, so that
-    registry inference adds no device memory.
+    serving pipeline's pose model and detector when given, so that
+    registry inference adds no device memory: an HRNet pose with `hrnet`
+    and the EfficientDet models' ensemble, a HigherHRNet pose with
+    `higherhrnet`, the EfficientDet detector (Lite4 or Lite0) with the
+    EfficientDet models, a YOLOv5 with the `yolov5*` entry of its variant.
 
     The configuration is the pipeline's, else the default one. `device`:
     where the runners run; the pipeline's device by default, else CUDA.
@@ -1032,6 +1104,12 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
 
     from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
         EFFICIENTDET_LITE4,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.higherhrnet import (
+        HigherHRNetHeatmaps,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.hrnet import (
+        HRNet,
     )
     from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
         VARIANTS,
@@ -1044,14 +1122,17 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
     )
 
     cfg = PipelineConfig()
-    pose = det = None
+    pose = det = higher = None
     det_config = EFFICIENTDET_LITE4
-    det_weights = pose_weights = "random"
+    det_weights = pose_weights = higher_weights = "random"
     yolo: Dict[str, Tuple[Any, str]] = {}
     if pipeline is not None:
         cfg = pipeline.config
         origin = pipeline.weights_origin
-        pose, pose_weights = pipeline.pose, origin["pose"]
+        if isinstance(pipeline.pose, HRNet):
+            pose, pose_weights = pipeline.pose, origin["pose"]
+        elif isinstance(pipeline.pose, HigherHRNetHeatmaps):
+            higher, higher_weights = pipeline.pose.higher, origin["pose"]
         backend = pipeline.backend
         if isinstance(backend, YoloBackend):
             # the serving detector is a YOLOv5: the yolo entry of its
@@ -1069,6 +1150,7 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
     reg = ModelRegistry()
     for e in (
         _hrnet_entry(cfg, device, pose, pose_weights),
+        _higherhrnet_entry(cfg, device, higher, higher_weights),
         _yolo_entry(cfg, device, "yolov5m", *yolo.get("yolov5m", ())),
         _yolo_entry(cfg, device, "yolov5s", *yolo.get("yolov5s", ())),
         *_edet_entries(cfg, det_config, device, det, pose,

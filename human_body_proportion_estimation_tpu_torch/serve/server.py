@@ -912,9 +912,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["efficientdet_lite4", "efficientdet_lite0",
                  "ssd_mobilenet", "yolov5s", "yolov5m"],
         help="default ssd_mobilenet, as the JAX server (not ported yet: "
-             "exits, as does efficientdet_lite0); efficientdet_lite4 "
-             "serves the committed synthetic-certified weights, yolov5s / "
-             "yolov5m a random YOLOv5 (no YOLO weights are in the "
+             "exits); efficientdet_lite4 serves the committed "
+             "synthetic-certified weights, efficientdet_lite0 / yolov5s / "
+             "yolov5m a random detector (no weights for them are in the "
              "repository) before the certified HRNet-W32",
     )
     parser.add_argument("--checkpoint-dir", default=None,

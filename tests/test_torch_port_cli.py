@@ -7,7 +7,8 @@ weights): the same nested result list `[[boxes, heatmaps, dist_dict_p0,
 `test_slice_outputs_match_jax`), cm dicts as in tests/test_torch_port_serve.py
 (decisive segments, 1e-3), and the same rendered file names. Then the
 flags: the port's `build_parser` takes the JAX one's option strings, and
-`build_pipeline` exits on the options it does not serve yet.
+`build_pipeline` exits on the options it does not serve yet and builds the
+Lite0 slot.
 """
 
 import os
@@ -102,7 +103,25 @@ def test_build_parser_takes_the_jax_options():
     ["-i", "d", "--checkpoint-dir", "ckpt"],
     ["-i", "d", "--detector", "efficientdet_lite0"],
 ])
-def test_build_pipeline_exits_on_options_not_ported(argv, capsys):
+def test_build_pipeline_exits_on_options_not_ported(argv, capsys,
+                                                    monkeypatch):
+    """--checkpoint-dir exits 2 naming its ROADMAP item. The Lite0 slot is
+    ported: the pipeline is built (here on the CPU) with the JAX CLI's
+    weights, the certified HRNet-W32 and the detector at random."""
+    from human_body_proportion_estimation_tpu_torch.cli import common
+    from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
+        EFFICIENTDET_LITE0,
+    )
+
+    if "efficientdet_lite0" in argv:
+        plain = common.InferencePipeline
+        monkeypatch.setattr(common, "InferencePipeline",
+                            lambda **kw: plain(**{**kw, "device": "cpu"}))
+        pipe = build_pipeline(build_parser("x").parse_args(argv))
+        assert pipe.weights_origin == {"detector": "random",
+                                       "pose": "synthetic-certified"}
+        assert pipe.backend.detector.config == EFFICIENTDET_LITE0
+        return
     with pytest.raises(SystemExit) as exc:
         build_pipeline(build_parser("x").parse_args(argv))
     assert exc.value.code == 2

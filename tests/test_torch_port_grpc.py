@@ -65,7 +65,7 @@ from tests.test_torch_port_serve import (
 )
 from tests.torch_port_tiny import (
     PORTED,
-    YOLO,
+    RANDOM,
     image,
     jax_pipeline,
     jax_registry,
@@ -265,7 +265,7 @@ def test_hbpe_repository_documents_match_jax(servers):
         assert code == grpc.StatusCode.NOT_FOUND
     same_error(servers, lambda c: c.model_config("hrnet", model_version="7"))
     same_error(servers, lambda c: c.model_ready("ssd_mobilenet"))
-    same_error(servers, lambda c: c.load_model("higherhrnet"))
+    same_error(servers, lambda c: c.load_model("ssd_mobilenet"))
 
 
 def test_hbpe_model_infer_matches_jax(servers):
@@ -278,7 +278,7 @@ def test_hbpe_model_infer_matches_jax(servers):
     assert list(got) == ["ENSEMBLE_OUTPUT_FILTER_DET_BOXES"]
     np.testing.assert_allclose(got["ENSEMBLE_OUTPUT_FILTER_DET_BOXES"],
                                ref["ENSEMBLE_OUTPUT_FILTER_DET_BOXES"], **TOL)
-    for name, inp in (("nope", {"input": x}), ("higherhrnet", {"input": x}),
+    for name, inp in (("nope", {"input": x}), ("ssd_mobilenet", {"input": x}),
                       ("hrnet", {"wrong": x}),
                       ("hrnet", {"input": x.astype(np.float64)})):
         same_error(servers, lambda c: c.infer(name, inp))
@@ -371,7 +371,7 @@ def test_kserve_server_and_model_documents_match_jax(servers):
                                         c.get_model_repository_index()],
                     kserve=True)
     assert got == ref
-    for name in ("higherhrnet", "nope"):
+    for name in ("ssd_mobilenet", "nope"):
         code, _ = same_error(servers, lambda c: c.get_model_metadata(name),
                              kserve=True)
         assert code == grpc.StatusCode.NOT_FOUND
@@ -450,7 +450,7 @@ def test_kserve_stream_errors_carry_the_request_id(servers):
 
 def test_kserve_repository_and_statistics_match_jax(servers):
     for client in servers["kclients"]:
-        for name in set(PORTED) - set(YOLO):
+        for name in set(PORTED) - set(RANDOM):
             client.load_model(name)
         client.unload_model(ENSEMBLE, unload_dependents=True)
     ref, got = both(servers, lambda c: c.get_model_repository_index(),
@@ -459,9 +459,9 @@ def test_kserve_repository_and_statistics_match_jax(servers):
     loaded = {r["name"]: r["loaded"]
               for r in servers["tapp"].registry.index()}
     assert loaded == {"edetlite4": True, "edetlite4_modified": False,
-                      ENSEMBLE: False, "hrnet": False, "yolov5m": False,
-                      "yolov5s": False}
-    same_error(servers, lambda c: c.load_model("higherhrnet"), kserve=True)
+                      ENSEMBLE: False, "higherhrnet": False, "hrnet": False,
+                      "yolov5m": False, "yolov5s": False}
+    same_error(servers, lambda c: c.load_model("ssd_mobilenet"), kserve=True)
     ref, got = both(servers, lambda c: c.get_inference_statistics("hrnet"),
                     kserve=True)
     assert got.model_stats[0].name == "hrnet"

@@ -23,10 +23,12 @@ import human_body_proportion_estimation_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 44, names
+assert len(names) >= 48, names
 for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "serve.hbpe_pb2", "serve.kserve_pb2", "serve.wire",
-             "serve.client", "serve.perf"):
+             "serve.client", "serve.perf", "models.higherhrnet",
+             "pipeline.detect", "pipeline.pose", "cli.detect_edet",
+             "cli.pose_est"):
     assert port.__name__ + "." + name in names, name
 import chip_smoke
 assert not [m for m in sys.modules if m.startswith(("jax", "flax"))
@@ -54,7 +56,7 @@ for name in ("grpc", "google.protobuf", "jax", "flax",
 from human_body_proportion_estimation_tpu_torch.serve import (
     client, registry, server, wire)
 reg = registry.build_registry(device="cpu")
-assert len(reg.names()) == 6, reg.names()
+assert len(reg.names()) == 7, reg.names()
 loaded = [m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))]
 assert not loaded, loaded
@@ -106,12 +108,17 @@ def test_certified_checkpoint_fills_full_width_port():
 def test_entry_point_defaults_to_cuda_without_fallback():
     import inspect
 
+    from human_body_proportion_estimation_tpu_torch.cli import (
+        detect_edet,
+        pose_est,
+    )
     from human_body_proportion_estimation_tpu_torch.pipeline.host import (
         InferencePipeline,
     )
 
-    default = inspect.signature(InferencePipeline).parameters["device"].default
-    assert default == "cuda"
+    for fn in (InferencePipeline, detect_edet.run_demo_odet,
+               pose_est.run_demo_pose_est):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             InferencePipeline(device="cuda")

@@ -44,7 +44,7 @@ from tests.torch_port_tiny import (
     MAX_BATCH,
     NOT_PORTED,
     PORTED,
-    YOLO,
+    RANDOM,
     image,
     jax_pipeline,
     jax_registry,
@@ -56,7 +56,8 @@ TOL = dict(rtol=1e-3, atol=1e-3)
 PLATFORM = {"hrnet": "pytorch", "edetlite4": "pytorch",
             "edetlite4_modified": "pytorch",
             "ensemble_edet4_person_det_pose": "pytorch_ensemble",
-            "yolov5m": "pytorch", "yolov5s": "pytorch"}
+            "higherhrnet": "pytorch", "yolov5m": "pytorch",
+            "yolov5s": "pytorch"}
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +108,7 @@ def test_index_lists_the_four_ported_models(apps):
     for g, r in zip(got, ref):
         assert {k: g[k] for k in ("name", "version", "state", "weights")} == {
             k: r[k] for k in ("name", "version", "state", "weights")}
-    assert all(row["weights"] == ("random" if row["name"] in YOLO
+    assert all(row["weights"] == ("random" if row["name"] in RANDOM
                                   else "real") for row in got)
 
 
@@ -420,12 +421,12 @@ def test_shared_core_is_released_only_when_no_sibling_is_loaded(
 
 def test_unload_dependents_matches_jax(apps):
     for reg in (apps["jreg"], apps["treg"]):
-        for name in set(PORTED) - set(YOLO):
+        for name in set(PORTED) - set(RANDOM):
             reg.load(name)
         reg.unload("ensemble_edet4_person_det_pose", unload_dependents=True)
     ref, got = both(apps, lambda r: {row["name"]: row["loaded"]
                                      for row in r.index()
-                                     if row["name"] not in YOLO})
+                                     if row["name"] not in RANDOM})
     assert got == ref == {"edetlite4": True, "edetlite4_modified": False,
                           "ensemble_edet4_person_det_pose": False,
                           "hrnet": False}
@@ -466,9 +467,10 @@ def test_certified_fallback_labels_unshared_slots(monkeypatch, tmp_path):
     idx = {r["name"]: r for r in reg.index()}
     assert set(idx) == set(PORTED)
     for name in PORTED:
-        # no YOLO weights are in the repository: those stay "random"
+        # no YOLO or HigherHRNet weights are in the repository: those
+        # stay "random"
         assert idx[name]["weights"] == (
-            "random" if name in YOLO else "synthetic-certified"), name
+            "random" if name in RANDOM else "synthetic-certified"), name
         assert not idx[name]["loaded"]
     monkeypatch.setattr(weights, "default_certified_checkpoint",
                         lambda: str(tmp_path / "missing.npz"))
@@ -666,7 +668,7 @@ def test_v2_infer_errors_match_jax(apps, case):
     if case == "unknown_model":
         path = "/v2/models/nope/infer"
     elif case == "not_ported":
-        path = "/v2/models/higherhrnet/infer"
+        path = "/v2/models/ssd_mobilenet/infer"
     elif case == "bad_dtype":
         body, headers = _infer_body({"input": x.astype(np.float64)}, False)
     elif case == "malformed_json":

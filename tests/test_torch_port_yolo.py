@@ -905,25 +905,53 @@ def test_flags_match_jax(monkeypatch):
 
 @pytest.mark.parametrize("argv,item", [
     ([], "item 10"), (["--detector", "ssd_mobilenet"], "item 10"),
-    (["--detector", "efficientdet_lite0"], "item 12"),
+    (["--detector", "efficientdet_lite0"], None),
 ], ids=["default", "ssd", "lite0"])
-def test_server_exits_on_detectors_not_ported(capsys, argv, item):
+def test_server_exits_on_detectors_not_ported(capsys, monkeypatch, argv,
+                                              item):
     """The JAX default, ssd_mobilenet, exits 2 naming its ROADMAP item (as
     the JAX server fails without ssd.tflite), before any model is built;
-    so does efficientdet_lite0. The CLI helper refuses them the same
-    way."""
+    the CLI helper refuses it the same way. efficientdet_lite0 is ported
+    (item 12): the server and the CLI helper build its pipeline (here on
+    the CPU) with the JAX server's weights, /health "random" for the
+    detector and "synthetic-certified" for the HRNet-W32."""
     import argparse
 
+    from human_body_proportion_estimation_tpu_torch.cli import common
     from human_body_proportion_estimation_tpu_torch.cli.common import (
         build_pipeline,
     )
-    from human_body_proportion_estimation_tpu_torch.serve.server import main
+    from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
+        EFFICIENTDET_LITE0,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve import (
+        server as tserver,
+    )
 
+    detector = argv[-1] if argv else "ssd_mobilenet"
+    if item is None:
+        served = []
+        for module in (tserver, common):
+            plain = module.InferencePipeline
+            monkeypatch.setattr(
+                module, "InferencePipeline",
+                lambda plain=plain, **kw: plain(**{**kw, "device": "cpu"}))
+        monkeypatch.setattr(tserver, "_serve",
+                            lambda args, pipe: served.append(pipe))
+        tserver.main(argv + ["--grpc-port", "0"])
+        pipes = served + [build_pipeline(argparse.Namespace(
+            detector=detector, checkpoint_dir=None))]
+        for pipe in pipes:
+            assert pipe.weights_origin == {"detector": "random",
+                                           "pose": "synthetic-certified"}
+            assert pipe.backend.detector.config == EFFICIENTDET_LITE0
+        assert "synthetic-certified weights for pose" in \
+            capsys.readouterr().out
+        return
     with pytest.raises(SystemExit) as exc:
-        main(argv + ["--grpc-port", "0"])
+        tserver.main(argv + ["--grpc-port", "0"])
     assert exc.value.code == 2
     assert f"ROADMAP.md {item}" in capsys.readouterr().err
-    detector = argv[-1] if argv else "ssd_mobilenet"
     with pytest.raises(SystemExit) as exc:
         build_pipeline(argparse.Namespace(detector=detector,
                                           checkpoint_dir=None))

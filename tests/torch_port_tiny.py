@@ -49,11 +49,15 @@ DET_HW, CROP_HW, HM_HW = (128, 128), (64, 64), (16, 16)
 MAX_BATCH = 4
 PERSON_BIAS = 4.0
 PORTED = ("edetlite4", "edetlite4_modified", "ensemble_edet4_person_det_pose",
-          "hrnet", "yolov5m", "yolov5s")
+          "higherhrnet", "hrnet", "yolov5m", "yolov5s")
 # the full-width YOLO models, built at random on both sides (no pipeline
 # here shares them); loading one costs ~25 s of flax init on the JAX side
 YOLO = ("yolov5m", "yolov5s")
-NOT_PORTED = ("higherhrnet", "ssd_mobilenet")
+# the models no pipeline here shares, built at random on both sides and
+# labelled so: the YOLO models and the full-width HigherHRNet (whose flax
+# init is as slow to load)
+RANDOM = YOLO + ("higherhrnet",)
+NOT_PORTED = ("ssd_mobilenet",)
 
 
 def configs():

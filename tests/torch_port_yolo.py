@@ -51,9 +51,9 @@ def to_torch(state):
 
 def to_flax(state):
     """The port's state dict (numpy) -> {'params', 'batch_stats'} of the
-    flax model: OIHW -> HWIO kernels, BatchNorm weight -> scale, running
-    statistics -> batch_stats (the inverse of
-    `models.weights.flax_to_state_dict`)."""
+    flax model: OIHW -> HWIO kernels (a `deconv`'s transposed-conv weight
+    flipped back), BatchNorm weight -> scale, running statistics ->
+    batch_stats (the inverse of `models.weights.flax_to_state_dict`)."""
     tree = {"params": {}, "batch_stats": {}}
     for key, value in state.items():
         *path, leaf = key.split(".")
@@ -69,8 +69,13 @@ def to_flax(state):
         node = tree[col]
         for p in path:
             node = node.setdefault(p, {})
-        node[name] = (np.transpose(value, (2, 3, 1, 0)) if value.ndim == 4
-                      else value).astype(np.float32)
+        if path[-1] == "deconv":
+            # torch's transposed conv [in, out, kh, kw] -> flax
+            # ConvTranspose (kh, kw, in, out), spatially flipped
+            value = np.transpose(value[:, :, ::-1, ::-1], (2, 3, 0, 1))
+        elif value.ndim == 4:
+            value = np.transpose(value, (2, 3, 1, 0))
+        node[name] = np.ascontiguousarray(value, dtype=np.float32)
     return tree
 
 
