@@ -8,6 +8,8 @@
     python3 chip_smoke.py --edge-sweep    # + the serving edge's load under
                                           # other settings (engine, batches
                                           # in flight, client threads)
+    python3 chip_smoke.py --phases UE     # phase 3, then only the phases
+                                          # named (no result line)
     python3 chip_smoke.py --time-kernels [--repo DIR] [--kernel NAME]
                                           # kernel times only (all, or those
                                           # whose name contains NAME), of this
@@ -122,8 +124,39 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      the registry's forward here at batch size 1; imgs/s at B=16 beside
      Lite4; head-score F = 64 (B=16, B=1) and decode [48,17,192,144] timed
      beside their bounds and the library call.
-  4. report: a `kernels` JSON line (launches: phases 3, A, C, Y and D), the
-     card's name and power limit, and the result line
+  U. bottom-up pose (ROADMAP item 13), with the seeded HigherHRNet of
+     tests/data/torch_port/bottomup_goldens.json (slot_goldens.json's seed)
+     made again on the CPU: the AE decode on the card against JAX's on the
+     cases of tests/torch_port_bottomup.py (bit for bit, NaN maps
+     included); the f32 (TF32 off) `BottomUpPipeline` at 512x512 on the
+     scenes: every argmax of the aggregated heat and tag maps identical to
+     the goldens', maxima within 1e-3 + 1e-3 relative, the card's decode of
+     its maps equal to the port's CPU decode of them, and the grouped
+     outputs and packed rows of both recorded decode configurations equal
+     to the goldens' wherever the card's maxima lie within the noise the
+     goldens' decode withstood; the served bf16 form (random
+     from the seeded generator) at B=16 and B=1, launches 0 / 0 / 0,
+     imgs/s, a torch.profiler split (chiprun_out/bottomup_profile_b16.txt)
+     and the decode's CUDA launches and device time at B=16; the registry's
+     higherhrnet running the pipeline's module; the serving edge over the
+     seeded weights in bf16 with the wide tag threshold (16 file-route
+     requests from 4 clients, each answer equal to its scene's in-process
+     forward at batch size 1, 2 or 4, cm values in them);
+     `serve.server --bottom-up` (default --detector, random weights, which
+     find nobody) in a subprocess: /health, 16 file-route requests
+     from 4 clients (each answer equal to its scene's in-process forward
+     at batch size 1, 2 or 4), the video route, the registry's
+     higherhrnet over HTTP and hbpe gRPC (equal to the module on rows
+     padded to the bucket), hbpe Estimate; `detect_pose_bottomup` in a
+     subprocess (as many persons as the in-process forward, its frame).
+  E. `cli.evaluate --detector efficientdet_lite4` in a subprocess on the
+     scenes and tests/data/torch_port/scenes_coco.json (their ground
+     truth), equal to the same run in process (one launch of each kernel);
+     box and keypoint AP50 equal to JAX's run_eval recorded there, every
+     other AP within the most one match at one threshold changes it on
+     these matches (a tenth of that for the mAPs), PCK within one keypoint.
+  4. report: a `kernels` JSON line (launches: phases 3, A, C, Y, D, U and
+     E), the card's name and power limit, and the result line
      {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX; builds into the package's gitignored `build/`.
@@ -594,9 +627,12 @@ def time_kernels(k, dev, det_state, only=""):
 # phase 3: the main path
 
 
-def profile_serving(pipe, images, height, thres, iters=3):
+def profile_serving(pipe, images, height, thres, iters=3,
+                    out_name="port_profile_b16.txt"):
     """torch.profiler over `iters` infer_serving batches: per-stage host and
-    device time, device busy share, kernel table to chiprun_out/."""
+    device time, device busy share, kernel table to chiprun_out/<out_name>.
+    Returns (wall ms, device busy ms, {stage: {host_ms, device_ms}}), each
+    a batch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -626,10 +662,10 @@ def profile_serving(pipe, images, height, thres, iters=3):
         log(f"  {name}: host {v['host_ms']:.2f} ms, device busy "
             f"{v['device_ms']:.2f} ms")
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "port_profile_b16.txt"),
-              "w") as fh:
+    with open(os.path.join(REPO, "chiprun_out", out_name), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_device_time_total",
                                            row_limit=60))
+    return wall_ms, device_ms, stages
 
 
 def run_main_path(k, dev, profile=False):
@@ -1557,7 +1593,6 @@ def run_yolo(k, dev, lite4_pipe, repo):
 
     from human_body_proportion_estimation_tpu_torch.ops import (
         nms as nms_ops,
-        proportions as prop_ops,
     )
     from human_body_proportion_estimation_tpu_torch.pipeline.detect import (
         YoloDetectPipeline,
@@ -1664,13 +1699,8 @@ def run_yolo(k, dev, lite4_pipe, repo):
     # forwards of their scenes (equal batch sizes: bf16 rounds by batch)
     warmed = prewarm_serving(spipe)
 
-    def answer(slots):
-        valid = [s for s in slots if s[0] > 0.5]
-        return {} if not valid else prop_ops.to_dist_dict(
-            valid[0][1:12], valid[0][12:] > 0.5)
-
-    refs = {(s, b): answer(spipe.infer_serving([images[s]] * b, height,
-                                               thres)[0])
+    refs = {(s, b): first_person(spipe.infer_serving([images[s]] * b,
+                                                     height, thres)[0])
             for s in range(n) for b in (1, 2, 4)}
     with_person = sum(bool(refs[(s, 1)]) for s in range(n))
     with served(srv.ServingApp(spipe)) as port:
@@ -1819,17 +1849,28 @@ def run_yolo(k, dev, lite4_pipe, repo):
 # phase D: the other slots (EfficientDet-Lite0, HigherHRNet) and their CLIs
 
 
-def load_slots():
-    """tests/torch_port_slots.py (the seeded weights, inputs and summaries
-    the CPU tests and the goldens generator share), loaded from the file
-    beside this one."""
+def load_tests_module(name="torch_port_slots"):
+    """tests/<name>.py (the seeded weights, inputs and summaries the CPU
+    tests and the goldens generators share: torch_port_slots,
+    torch_port_bottomup), loaded from the file beside this one."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "torch_port_slots", os.path.join(REPO, "tests", "torch_port_slots.py"))
+        name, os.path.join(REPO, "tests", f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+_SEEDED_HIGHER = {}
+
+
+def seeded_higher(slots, seed, crops):
+    """The goldens' seeded HigherHRNet state dict (torch), made on this
+    machine's CPU once a run (phases D and U share it)."""
+    if seed not in _SEEDED_HIGHER:
+        _SEEDED_HIGHER[seed] = slots.to_torch(slots.higher_state(seed, crops))
+    return _SEEDED_HIGHER[seed]
 
 
 def level_features(model, images):
@@ -1917,7 +1958,7 @@ def run_other_slots(k, dev, lite4_pipe, repo, batch=16):
     )
 
     t_phase = time.perf_counter()
-    slots = load_slots()
+    slots = load_tests_module()
     with open(os.path.join(DATA, "slot_goldens.json")) as fh:
         golden = json.load(fh)
     g_lite0, g_higher = golden["lite0"], golden["higherhrnet"]
@@ -1933,7 +1974,7 @@ def run_other_slots(k, dev, lite4_pipe, repo, batch=16):
     t0 = time.perf_counter()
     lite0_state = slots.to_torch(slots.lite0_state(
         g_lite0["seed"], g_lite0["class_bias"], images))
-    higher_state = slots.to_torch(slots.higher_state(g_higher["seed"], crops))
+    higher_state = seeded_higher(slots, g_higher["seed"], crops)
     log(f"phase D: seeded Lite0 (seed {g_lite0['seed']}, class bias "
         f"{g_lite0['class_bias']}) and HigherHRNet (seed {g_higher['seed']}) "
         f"made on the CPU in {time.perf_counter() - t0:.1f} s")
@@ -2245,6 +2286,536 @@ def run_other_slots(k, dev, lite4_pipe, repo, batch=16):
     return counted.total
 
 
+# --------------------------------------------------------------------- #
+# phase U: bottom-up pose (ROADMAP item 13)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def server_process(repo, args, timeout=600):
+    """`python3 -m <port>.serve.server <args>` in a subprocess: yields the
+    lines it printed once it prints "serving on" (and keeps collecting);
+    terminated, then killed, on the way out."""
+    import queue
+    import threading
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "human_body_proportion_estimation_tpu_torch.serve.server", *args],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines, fresh = [], queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            fresh.put(line)
+        fresh.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        deadline = time.time() + timeout
+        while True:
+            line = fresh.get(timeout=max(deadline - time.time(), 0.1))
+            assert line is not None, "server exited:\n" + "".join(lines[-40:])
+            if line.startswith("serving on"):
+                break
+        yield lines
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def first_person(row):
+    """A packed [P, 23] row -> the file route's cm dict of its first valid
+    slot ({} without one)."""
+    from human_body_proportion_estimation_tpu_torch.ops import (
+        proportions as prop_ops,
+    )
+
+    valid = [s for s in row if s[0] > 0.5]
+    return {} if not valid else prop_ops.to_dist_dict(valid[0][1:12],
+                                                      valid[0][12:] > 0.5)
+
+
+def grouping_equal(got, ref):
+    """Two groupings (tensors or nested lists) equal field for field, NaN
+    where NaN."""
+    import numpy as np
+
+    for field in ("keypoints", "scores", "valid"):
+        a = np.asarray(getattr(got, field).cpu() if hasattr(got, field)
+                       else got[field])
+        b = np.asarray(getattr(ref, field).cpu() if hasattr(ref, field)
+                       else ref[field], dtype=a.dtype)
+        if not np.array_equal(a, b, equal_nan=a.dtype.kind == "f"):
+            return False
+    return True
+
+
+def count_launches(fn):
+    """(CUDA kernel and memory-op events, device busy ms) of one call of
+    `fn` under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(cuda), sum(e.device_time_total for e in cuda) / 1e3
+
+
+def run_bottom_up(k, dev, repo, batch=16):
+    """Phase U: the bottom-up pipeline (HigherHRNet + AE grouping) on the
+    card: the decode cases and the f32 forward against the JAX goldens,
+    the served bf16 form at B=16 and B=1 (times, a profile, the decode's
+    launches), `serve.server --bottom-up` in a subprocess (file route under
+    load, video route, registry higherhrnet over HTTP and hbpe, hbpe
+    Estimate), the registry sharing the module, and `detect_pose_bottomup`
+    in a subprocess. Returns the launches of the bottom-up forwards
+    (none: no kernel of the port is on this path)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.ops import (
+        ae_grouping as ae,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.bottomup import (
+        BottomUpPipeline,
+        prepare_batch_bottomup,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        _pad_batch,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve import (
+        server as srv,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.client import (
+        HttpClient,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.registry import (
+        build_registry,
+    )
+
+    t_phase = time.perf_counter()
+    slots = load_tests_module()
+    bu = load_tests_module("torch_port_bottomup")
+    with open(os.path.join(DATA, "bottomup_goldens.json")) as fh:
+        golden = json.load(fh)
+    images = slots.scenes()
+    n = len(images)
+    scene_bytes = []
+    for name in golden["scenes"]:
+        with open(os.path.join(DATA, name), "rb") as fh:
+            scene_bytes.append(fh.read())
+    height, thres = golden["height_cm"], 0.7
+    counted = Counted(k)
+    zero = dict.fromkeys(KERNELS, 0)
+    figures = {}
+
+    # 1. the decode cases on the card: JAX's grouping bit for bit
+    for name, heat, tags, kw in bu.decode_cases():
+        got = ae.decode_bottom_up(torch.from_numpy(heat).to(dev),
+                                  torch.from_numpy(tags).to(dev), **kw)
+        assert grouping_equal(got, golden["decode_cases"][name]), name
+    log(f"phase U: the AE decode on the card equals JAX's on the "
+        f"{len(golden['decode_cases'])} decode cases bit for bit (ties, "
+        f"plateaus, NaN and inf maps included)")
+
+    # 2. f32 (TF32 off), the goldens' seeded HigherHRNet
+    state = seeded_higher(slots, golden["seed"], slots.crops(images))
+    fpipe = BottomUpPipeline(pose_state=state, device=dev,
+                             dtype=torch.float32)
+    batch_u8, heights, orig_hw, _ = prepare_batch_bottomup(
+        list(images), height, n, fpipe.max_people, fpipe.INPUT_HW)
+    with counted, torch.inference_mode():
+        heat, tags = fpipe.aggregate(torch.from_numpy(batch_u8).to(dev))
+    assert counted.last == zero, counted.last
+    rel = 0.0
+    for name, maps in (("heat", heat), ("tags", tags)):
+        mx, am, _ = slots.heatmap_summary(maps.cpu().numpy())
+        ref = golden["maps"][name]
+        assert am == ref["argmax"], f"{name}: an argmax differs"
+        err = np.abs(np.asarray(mx) - np.asarray(ref["max"]))
+        assert (err <= 1e-3 + 1e-3 * np.abs(ref["max"])).all(), (
+            name, float(err.max()))
+        # relative to each map's largest magnitude, as the goldens' noise
+        rel = max(rel, float((err / np.asarray(ref["absmax"])).max()))
+    figures["f32_maxima_rel_err"] = rel
+    held = {}
+    for name, config in golden["configs"].items():
+        for attr, value in config["decode"].items():
+            setattr(fpipe, attr, value)
+        kw = dict(config["decode"])
+        on_card = ae.decode_bottom_up(heat, tags, **kw)
+        on_cpu = ae.decode_bottom_up(heat.cpu(), tags.cpu(), **kw)
+        assert grouping_equal(on_card, on_cpu), \
+            f"{name}: the card's decode differs from the CPU's"
+        with counted:
+            out = fpipe.infer_images(list(images), person_heights=height)
+            packed = fpipe.infer_serving(list(images), person_heights=height)
+        assert counted.last == zero, counted.last
+        ref_out, ref_packed = config["outputs"], np.asarray(config["packed"])
+        same = dict(
+            person_valid=bool(np.array_equal(out.person_valid,
+                                              ref_out["person_valid"])),
+            keypoints=bool(np.array_equal(out.keypoints,
+                                           np.asarray(ref_out["keypoints"],
+                                                      np.float32))),
+            seg_visible=bool(np.array_equal(packed[..., 12:],
+                                             ref_packed[..., 12:])))
+        cm_err = float(np.abs(packed[..., 1:12] - ref_packed[..., 1:12]).max())
+        # the decode's decisions are held to JAX's where the card's maxima
+        # lie within the noise the goldens' decode withstood
+        held[name] = rel <= config["stable_noise"]
+        if held[name]:
+            assert all(same.values()), (name, same)
+            assert cm_err <= 1e-3 * max(1.0, float(np.abs(ref_packed).max())), \
+                (name, cm_err)
+        figures[f"f32_{name}"] = dict(
+            **same, max_abs_cm_err=cm_err, persons=int(out.person_valid.sum()),
+            segments=int(packed[..., 12:].sum()),
+            stable_noise=config["stable_noise"], held=held[name])
+    log(f"phase U: f32 (TF32 off) seeded HigherHRNet at 512x512 vs the JAX "
+        f"goldens: every argmax of the aggregated heat and tags identical, "
+        f"maxima within {rel:.3g} relative; the card's decode of its maps "
+        f"equals the port's CPU decode of them; outputs "
+        f"{json.dumps({k_: figures[f'f32_{k_}'] for k_ in held})}")
+
+    # 3. the served form: bf16, random from the seeded generator (what
+    # `serve.server --bottom-up` builds without the certified checkpoint)
+    bpipe = BottomUpPipeline(device=dev)
+    assert bpipe.weights_origin == {"pose": "random"}
+    batch16 = [images[i % n] for i in range(batch)]
+    with counted:
+        p16 = bpipe.infer_serving(batch16, height)
+        p1 = [bpipe.infer_serving([img], height) for img in images]
+    assert counted.last == zero, counted.last
+    assert p16.shape == (batch, 3, 23) and np.isfinite(p16).all()
+    for i in range(batch):
+        np.testing.assert_array_equal(p16[i], p16[i % n])
+    assert all(p.shape == (1, 3, 23) and np.isfinite(p).all() for p in p1)
+    figures["bf16_persons_b16"] = int((p16[:n, :, 0] > 0.5).sum())
+    figures["imgs_per_s"] = {
+        "B=16": imgs_per_s(bpipe, batch16, height, thres),
+        "B=1": imgs_per_s(bpipe, [images[0]], height, thres, iters=16)}
+    wall, busy, stages = profile_serving(bpipe, batch16, height, thres,
+                                         out_name="bottomup_profile_b16.txt")
+    figures["profile_b16"] = dict(wall_ms=wall, device_busy_ms=busy,
+                                  stages=stages)
+    b16, h16, o16, _ = prepare_batch_bottomup(batch16, height, batch, 3,
+                                              bpipe.INPUT_HW)
+    with torch.inference_mode():
+        args = [torch.from_numpy(a).to(dev) for a in (b16, h16, o16)]
+        heat16, tags16 = bpipe.aggregate(args[0])
+        launches, decode_busy = count_launches(
+            lambda: bpipe.decode(heat16, tags16, *args[1:]))
+        model_launches, model_busy = count_launches(
+            lambda: bpipe.aggregate(args[0]))
+        decode_ms = cuda_ms(lambda: bpipe.decode(heat16, tags16, *args[1:]),
+                            10)
+    figures["decode_b16"] = dict(
+        cuda_events=launches, device_busy_ms=decode_busy,
+        ms_launched_eagerly=decode_ms, model_cuda_events=model_launches,
+        model_device_busy_ms=model_busy)
+    log(f"phase U: bf16 served form: B=16 and B=1 forwards, launches "
+        f"{counted.last}; imgs/s {json.dumps(figures['imgs_per_s'])}; "
+        f"profile B=16 {json.dumps(figures['profile_b16'])}; decode at B=16 "
+        f"{json.dumps(figures['decode_b16'])}")
+
+    # 4. the registry's higherhrnet is the pipeline's module
+    reg = build_registry(bpipe)
+    calls = []
+    hook = bpipe.model.register_forward_hook(lambda *a: calls.append(1))
+    x1 = np.random.default_rng(8).uniform(0, 1, (1, 3, 512, 512)).astype(
+        np.float32)
+    try:
+        with counted:
+            reg.infer("higherhrnet", {"input": x1})
+    finally:
+        hook.remove()
+        reg.shutdown()
+    assert calls == [1] and counted.last == zero, (calls, counted.last)
+
+    # 5. the serving edge over the goldens' seeded weights in bf16 with the
+    # wide tag threshold (the random HigherHRNet finds nobody: its peaks
+    # stay near 0.1, under the person gate): 16 file-route requests from 4
+    # clients, each answer equal to its scene's in-process forward at one
+    # of the batch sizes 1, 2, 4 (bf16 rounds by batch size)
+    spipe = BottomUpPipeline(pose_state=state, device=dev,
+                             **golden["configs"]["wide"]["decode"])
+    srefs = {(s, b): first_person(spipe.infer_serving([images[s]] * b,
+                                                      height)[0])
+             for s in range(n) for b in (1, 2, 4)}
+    with served(srv.ServingApp(spipe)) as port:
+        m0 = http_json(port, "GET", "/metrics")
+        with counted:
+            answers, wall = post_load(port, scene_bytes, [int(height)] * 16,
+                                      thres, 4)
+        m1 = http_json(port, "GET", "/metrics")
+    assert counted.last == zero, counted.last
+    numbers, sizes = 0, []
+    for i, r in enumerate(answers):
+        assert r["code"] == "success", r
+        cm = r["body_proportion_lengths_(cm)"]
+        match = [b for b in (1, 2, 4) if srefs[(i % n, b)] == cm]
+        assert match, (i, cm, [srefs[(i % n, b)] for b in (1, 2, 4)])
+        sizes.append(match[0])
+        numbers += sum(isinstance(v, float) for v in cm.values())
+    assert numbers > 0, answers
+    figures["seeded_server"] = load_summary(m0, m1, wall, 16)
+    log(f"phase U: the serving edge over the seeded bf16 pipeline (tag "
+        f"threshold 1000): 16 requests from 4 clients, every answer equal "
+        f"to its scene's in-process forward at batch size "
+        f"{sorted(set(sizes))}, {numbers} cm values: "
+        f"{json.dumps(figures['seeded_server'])}")
+
+    # 6. `serve.server --bottom-up` (the default detector) in a subprocess,
+    # random from the seeded generator as `bpipe`: /health, the file route
+    # under 16 requests from 4 clients (each answer equal to its scene's
+    # in-process forward at batch size 1, 2 or 4), the video route, the
+    # registry's higherhrnet over HTTP and hbpe, hbpe Estimate
+    missing = grpc_modules()
+    http_port = free_port()
+    grpc_port = 0 if missing else free_port()
+    refs = {(s, b): first_person(bpipe.infer_serving([images[s]] * b,
+                                                     height)[0])
+            for s in range(n) for b in (1, 2, 4)}
+    t0 = time.perf_counter()
+    with server_process(repo, ["--bottom-up", "--host", "127.0.0.1",
+                               "--port", str(http_port), "--grpc-port",
+                               str(grpc_port), "--prewarm"]) as printed:
+        started = time.perf_counter() - t0
+        text = "".join(printed)
+        assert "WARNING: serving RANDOM-INIT HigherHRNet" in text, text
+        health = http_json(http_port, "GET", "/health")
+        assert health["weights"] == {"pose": "random"}, health
+        assert health["prewarmed"] is True, health
+        m0 = http_json(http_port, "GET", "/metrics")
+        answers, wall = post_load(http_port, scene_bytes,
+                                  [int(height)] * 16, thres, 4)
+        m1 = http_json(http_port, "GET", "/metrics")
+        sizes = []
+        for i, r in enumerate(answers):
+            assert r["code"] == "success", r
+            cm = r["body_proportion_lengths_(cm)"]
+            match = [b for b in (1, 2, 4) if refs[(i % n, b)] == cm]
+            assert match, (i, cm, [refs[(i % n, b)] for b in (1, 2, 4)])
+            sizes.append(match[0])
+        figures["server"] = load_summary(m0, m1, wall, 16)
+        figures["server"]["startup_s"] = started
+        clip = mjpg_clip(scene_bytes, n_frames=6)
+        video = http_json(http_port, "POST",
+                          "/body_proportion_length_estimation_video",
+                          {"file": (clip, "clip.avi"),
+                           "person_height_in_cm": int(height)})
+        assert video["code"] == "success", video
+        assert [f["frame"] for f in video["frames"]] == list(range(6))
+        clients = {"http": HttpClient("127.0.0.1", http_port).infer}
+        if not missing:
+            from human_body_proportion_estimation_tpu_torch.serve.grpc_server import (  # noqa: E501
+                GrpcClient,
+            )
+
+            hbpe = GrpcClient(f"127.0.0.1:{grpc_port}")
+            clients["hbpe"] = hbpe.infer
+        try:
+            http = HttpClient("127.0.0.1", http_port)
+            index = {r["name"]: r["weights"] for r in http.models()["models"]}
+            assert index["higherhrnet"] == "random", index
+            assert "ssd_mobilenet" not in index, index
+            rng = np.random.default_rng(9)
+            for via, infer in clients.items():
+                for rows in (1, 2, 3):
+                    x = rng.uniform(0, 1, (rows, 3, 512, 512)).astype(
+                        np.float32)
+                    got = infer("higherhrnet", {"input": x})
+                    b = _pad_batch(rows, bpipe.config.serve.max_batch)
+                    xp = np.concatenate([x, np.zeros((b - rows, 3, 512, 512),
+                                                     np.float32)])
+                    with torch.inference_mode():
+                        ref = bpipe.model(torch.from_numpy(xp).to(dev))
+                    for name in ("output_1", "output_2"):
+                        np.testing.assert_array_equal(
+                            got[name], ref[name][:rows].cpu().numpy(),
+                            err_msg=f"{via} {name} rows {rows}")
+            if not missing:
+                est = hbpe.estimate(scene_bytes[0], height, thres)
+                assert est["body_proportion_lengths_(cm)"] == refs[(0, 1)], \
+                    est
+        finally:
+            if not missing:
+                hbpe.close()
+    log(f"phase U: serve.server --bottom-up (default --detector "
+        f"ssd_mobilenet) up in {started:.1f} s with --prewarm; 16 requests "
+        f"from 4 clients, every answer equal to its scene's in-process "
+        f"forward at batch size {sorted(set(sizes))}: "
+        f"{json.dumps(figures['server'])}; video route 6 frames; registry "
+        f"higherhrnet over {', '.join(clients)} equal to the pipeline's "
+        f"module on rows padded to the bucket"
+        + ("" if missing else "; hbpe Estimate equals the B=1 forward"))
+
+    # 7. the CLI in a subprocess: as many cm dicts as the in-process forward
+    # finds persons in the scene, and its rendering
+    with tempfile.TemporaryDirectory() as out_dir:
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "human_body_proportion_estimation_tpu_torch.cli."
+             "detect_pose_bottomup", "-i",
+             os.path.join(DATA, golden["scenes"][0]), "-o", out_dir],
+            cwd=repo, capture_output=True, text=True, timeout=600)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        frames = os.listdir(os.path.join(out_dir, "tpu_bottomup_pose"))
+    assert frames == ["frame_000000.jpg"], frames
+    with counted:
+        want = int(bpipe.infer_images([images[0]]).person_valid.sum())
+    assert counted.last == zero, counted.last
+    assert proc.stdout.count("'shoulder':") == want, (proc.stdout[-2000:],
+                                                      want)
+    log(f"phase U: detect_pose_bottomup exits 0 with {want} person(s) "
+        f"printed and frame_000000.jpg rendered, as the in-process forward")
+    log(f"phase U card: {card_line()}")
+    log(f"phase U: {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{counted.total}")
+    return counted.total
+
+
+# --------------------------------------------------------------------- #
+# phase E: the evaluate CLI (ROADMAP item 14)
+
+
+def one_match_figure(calls):
+    """From the (name, args) of run_eval's detection_ap and oks_ap calls:
+    for each, the most that turning one match into a miss, or one miss
+    into a match, at one threshold changes the AP there (over every
+    detection and threshold)."""
+    import numpy as np
+
+    from human_body_proportion_estimation_tpu_torch.metrics import (
+        average_precision,
+        match_image,
+    )
+    from human_body_proportion_estimation_tpu_torch.metrics import (
+        pose as pose_metrics,
+    )
+    from human_body_proportion_estimation_tpu_torch.metrics.detection import (
+        IOU_SWEEP,
+    )
+
+    out = {}
+    for name, args in calls:
+        preds, gts = args[0], args[1]
+        n_gt = sum(len(g[0]) if name == "oks_ap" else len(g) for g in gts)
+        worst = 0.0
+        for thr in IOU_SWEEP:
+            scores, tps = [], []
+            for (a, s), g in zip(preds, gts):
+                s = np.asarray(s, np.float32).reshape(-1)
+                scores.append(s)
+                if name == "oks_ap":
+                    tps.append(pose_metrics._match_image_oks(
+                        np.asarray(a, np.float32), s, *(np.asarray(v)
+                                                        for v in g), thr))
+                else:
+                    tps.append(match_image(
+                        np.asarray(a, np.float32).reshape(-1, 4), s,
+                        np.asarray(g, np.float32).reshape(-1, 4), thr))
+            scores, tp = np.concatenate(scores), np.concatenate(tps)
+            base = average_precision(scores, tp, n_gt)
+            for i in range(len(tp)):
+                flipped = tp.copy()
+                flipped[i] = not flipped[i]
+                worst = max(worst, abs(average_precision(scores, flipped,
+                                                         n_gt) - base))
+        out[name] = worst
+    return out
+
+
+def run_evaluate(k, lite4_pipe, repo):
+    """Phase E: `cli.evaluate --detector efficientdet_lite4` in a
+    subprocess on the committed scenes and their COCO ground truth, against
+    JAX's run_eval of the certified pipeline (scenes_coco.json) and the
+    same run in process. Returns the in-process run's launches."""
+    import math
+
+    import human_body_proportion_estimation_tpu_torch.metrics as metrics
+    from human_body_proportion_estimation_tpu_torch.cli import evaluate
+
+    t_phase = time.perf_counter()
+    path = os.path.join(DATA, "scenes_coco.json")
+    with open(path) as fh:
+        jax_result = json.load(fh)["jax_run_eval"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "human_body_proportion_estimation_tpu_torch.cli.evaluate",
+         "--annotations", path, "--images-dir", DATA,
+         "--detector", "efficientdet_lite4"],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    # the same run in process, recording what reaches the metrics
+    calls, plain = [], {}
+    for name in ("detection_ap", "oks_ap"):
+        plain[name] = getattr(metrics, name)
+        setattr(metrics, name, lambda *a, _n=name, **kw: (
+            calls.append((_n, a)), plain[_n](*a, **kw))[1])
+    counted = Counted(k)
+    try:
+        with counted:
+            inproc = evaluate.run_eval(lite4_pipe, path, DATA)
+    finally:
+        for name, fn in plain.items():
+            setattr(metrics, name, fn)
+    assert counted.last == dict.fromkeys(KERNELS, 1), counted.last
+    assert {key: v for key, v in result.items() if key != "detector"} == \
+        inproc, (result, inproc)
+    assert result["weights"] == {"detector": "synthetic-certified",
+                                 "pose": "synthetic-certified"}, result
+    assert result["images"] == 3 and result["missing_files"] == 0, result
+    flip = one_match_figure(calls)
+    bounds = {"box_AP50": 0.0, "kp_AP50": 0.0,
+              "box_AP75": flip["detection_ap"], "kp_AP75": flip["oks_ap"],
+              "box_mAP": flip["detection_ap"] / 10,
+              "kp_mAP": flip["oks_ap"] / 10,
+              "PCK@0.1diag": 1.0 / 51}
+    diffs = {}
+    for key, bound_ in bounds.items():
+        got, ref = result[key], jax_result[key]
+        assert not math.isnan(got) and 0.0 <= got <= 1.0, (key, got)
+        diffs[key] = abs(got - ref)
+        assert diffs[key] <= bound_ + 1e-12, (key, got, ref, bound_)
+    log(f"phase E: cli.evaluate --detector efficientdet_lite4 on the 3 "
+        f"scenes in {wall:.1f} s (subprocess, its start included): "
+        f"{json.dumps(result)}; JAX {json.dumps(jax_result)}; AP50 equal, "
+        f"every other figure within one match at one threshold (the most "
+        f"one match changes an AP here: box {flip['detection_ap']:.4f}, "
+        f"keypoints {flip['oks_ap']:.4f}; mAP a tenth of it; PCK one "
+        f"keypoint of 51): |diff| {json.dumps(diffs)}; in process equal, "
+        f"launches {counted.last}")
+    log(f"phase E: {time.perf_counter() - t_phase:.1f} s")
+    return counted.total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -2258,6 +2829,10 @@ def main() -> int:
                     help="with --time-kernels: only the cases named so")
     ap.add_argument("--repo", default=REPO,
                     help="checkout whose port package is built and run")
+    ap.add_argument("--phases", default="ABCYDUE",
+                    help="the phases after 3 to run (all by default); a "
+                         "subset ends after the kernels line and the "
+                         "card's, without the result line")
     args = ap.parse_args()
 
     import torch
@@ -2296,21 +2871,29 @@ def main() -> int:
 
     launches = {r["name"]: None for r in results}
     if not args.kernels_only:
+        repo = os.path.abspath(args.repo)
         launches, pipe, golden, scene_bytes = run_main_path(
             k, dev, profile=args.profile)
-        edge = run_serving_edge(k, pipe, golden, scene_bytes)
-        run_cli(golden, os.path.abspath(args.repo))
-        wire_launches = run_registry_and_wire(k, pipe, golden, scene_bytes)
-        yolo_launches = run_yolo(k, dev, pipe, os.path.abspath(args.repo))
-        slot_launches = run_other_slots(k, dev, pipe,
-                                        os.path.abspath(args.repo))
+        phases = {
+            "A": lambda: run_serving_edge(k, pipe, golden,
+                                          scene_bytes)["launches"],
+            "B": lambda: run_cli(golden, repo),
+            "C": lambda: run_registry_and_wire(k, pipe, golden, scene_bytes),
+            "Y": lambda: run_yolo(k, dev, pipe, repo),
+            "D": lambda: run_other_slots(k, dev, pipe, repo),
+            "U": lambda: run_bottom_up(k, dev, repo),
+            "E": lambda: run_evaluate(k, pipe, repo),
+        }
         # the kernels line counts the launches of every path driven: the
         # main path (phase 3), the serving edge (A), the registry and wire
-        # protocols (C), the YOLO slot (Y) and the other slots (D), each
-        # counted from 0 just before it
-        launches = {name: launches[name] + edge["launches"][name]
-                    + wire_launches[name] + yolo_launches[name]
-                    + slot_launches[name] for name in launches}
+        # protocols (C), the YOLO slot (Y), the other slots (D), bottom-up
+        # pose (U: none) and the evaluate CLI's pipeline (E), each counted
+        # from 0 just before it
+        for name, run in phases.items():
+            if name in args.phases:
+                counts = run() or {}
+                launches = {kn: launches[kn] + counts.get(kn, 0)
+                            for kn in launches}
         if args.edge_sweep:
             edge_sweep(pipe, golden, scene_bytes)
     sources = {"decode_heatmaps": "decode_heatmaps.cu",
@@ -2336,7 +2919,7 @@ def main() -> int:
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)
-    if args.kernels_only:
+    if args.kernels_only or set("ABCYDUE") - set(args.phases):
         return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,33 @@ def default_certified_checkpoint() -> str:
     )
 
 
+def default_certified_bottomup_checkpoint() -> str:
+    """Where the JAX package keeps its synthetic-certified bottom-up
+    checkpoint (HigherHRNet @ 512x512, pose slot only), the weights
+    `serve.server --bottom-up` serves when the file is there."""
+    return os.path.join(
+        _REPO_DIR, "human_body_proportion_estimation_tpu", "checkpoints",
+        "certified_higherhrnet.npz",
+    )
+
+
+def maybe_load_certified(bottom_up: bool = False):
+    """(det_state, pose_state) port `state_dict`s of the committed
+    synthetic-certified checkpoint (the bottom-up one with `bottom_up`,
+    whose detector slot is empty: None), or (None, None) when the file is
+    absent or HBPE_DISABLE_CERTIFIED_FALLBACK is set. The rule of the JAX
+    package's `maybe_load_certified`; callers label the slots they use
+    "synthetic-certified"."""
+    if os.environ.get("HBPE_DISABLE_CERTIFIED_FALLBACK"):
+        return None, None
+    path = (default_certified_bottomup_checkpoint() if bottom_up
+            else default_certified_checkpoint())
+    if not os.path.exists(path):
+        return None, None
+    return tuple(flax_to_state_dict(tree) if tree else None
+                 for tree in load_compact_checkpoint(path))
+
+
 def load_compact_checkpoint(path: str) -> Tuple[Dict, Dict]:
     """(det_vars, pose_vars) flax-style trees of float32 numpy arrays."""
     data = np.load(path)

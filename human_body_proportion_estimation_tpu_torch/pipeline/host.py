@@ -154,7 +154,9 @@ def prewarm_serving(pipeline) -> list:
     of algorithms for the new shapes, the packing of the head weights).
     The analog of Triton marking a model READY only after load +
     initialize (reference README.md:56-64). Returns the image counts warmed
-    and sets `pipeline.prewarmed` for /health."""
+    and sets `pipeline.prewarmed` for /health. Works on any pipeline with
+    `config`, `infer_serving` and `prewarmed`: an `InferencePipeline` or a
+    `pipeline.bottomup.BottomUpPipeline` (which ignores the threshold)."""
     max_batch = pipeline.config.serve.max_batch
     img = np.zeros((64, 48, 3), np.uint8)
     warmed = []

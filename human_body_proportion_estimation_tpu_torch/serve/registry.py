@@ -590,9 +590,10 @@ class ModelRegistry:
 
 
 def _certified_fallback(slot: str, arch_ok: bool = True):
-    """Lazy loader of one slot ("det" or "pose") of the committed
-    synthetic-certified checkpoint as a port `state_dict`, or None when the
-    file is absent or the entry's architecture is not the certified one.
+    """Lazy loader of one slot of a committed synthetic-certified
+    checkpoint as a port `state_dict` ("det" or "pose" of the Lite4 + W32
+    one, "higherhrnet" the pose slot of the bottom-up one), or None when
+    the file is absent or the entry's architecture is not the certified one.
     Registry entries that share no pipeline module load these instead of
     random weights (the reference never serves untrained weights,
     README.md:13-26). Only the existence check runs at registry build; the
@@ -606,18 +607,18 @@ def _certified_fallback(slot: str, arch_ok: bool = True):
         return None
 
     from human_body_proportion_estimation_tpu_torch.models.weights import (
+        default_certified_bottomup_checkpoint,
         default_certified_checkpoint,
+        maybe_load_certified,
     )
 
-    if not os.path.exists(default_certified_checkpoint()):
+    bottom_up = slot == "higherhrnet"
+    if not os.path.exists(default_certified_bottomup_checkpoint() if bottom_up
+                          else default_certified_checkpoint()):
         return None
 
     def load():
-        from human_body_proportion_estimation_tpu_torch.pipeline.host import (
-            load_certified_states,
-        )
-
-        det_state, pose_state = load_certified_states()
+        det_state, pose_state = maybe_load_certified(bottom_up)
         return det_state if slot == "det" else pose_state
 
     return load
@@ -709,14 +710,19 @@ def _higherhrnet_entry(cfg, device, model=None,
     """`higherhrnet`: f32 NCHW image of any size -> "output_1" (K heatmaps +
     K AE tags, 1/4 res) and "output_2" (K heatmaps, 1/2 res), the tensor
     contract the reference reads (pose_est_hrnet_trtserver.py:22-28 uses
-    output_2). `model`: the serving pipeline's HigherHRNet, if its pose
-    slot is one; else the entry builds its own at its first load, at
-    random from a seeded torch.Generator (`models.layers.init_random`:
-    the JAX package's certified bottom-up checkpoint, its fallback, is not
-    in the repository). Rows are padded to the launch bucket as the
-    `hrnet` entry pads them."""
+    output_2). `model`: the serving pipeline's HigherHRNet (the bottom-up
+    pipeline's model, or a HigherHRNet pose slot's); else the entry builds
+    its own at its first load: the certified bottom-up checkpoint where the
+    repository holds it, as in the JAX registry, else at random from a
+    seeded torch.Generator (`models.layers.init_random`). Rows are padded
+    to the launch bucket as the `hrnet` entry pads them."""
     k = cfg.pose.num_keypoints
     max_batch = cfg.serve.max_batch
+    fallback = None
+    if model is None:
+        fallback = _certified_fallback("higherhrnet")
+        if fallback is not None:
+            weights = "synthetic-certified"
 
     def build():
         import torch
@@ -732,7 +738,9 @@ def _higherhrnet_entry(cfg, device, model=None,
         )
 
         net = model
-        if net is None:
+        if net is None and fallback is not None:
+            net = _standalone(HigherHRNet, fallback, device)
+        elif net is None:
             net = init_random(HigherHRNet()).to(device).eval()
 
         @torch.inference_mode()
@@ -1095,7 +1103,9 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
     registry inference adds no device memory: an HRNet pose with `hrnet`
     and the EfficientDet models' ensemble, a HigherHRNet pose with
     `higherhrnet`, the EfficientDet detector (Lite4 or Lite0) with the
-    EfficientDet models, a YOLOv5 with the `yolov5*` entry of its variant.
+    EfficientDet models, a YOLOv5 with the `yolov5*` entry of its variant;
+    a bottom-up pipeline's HigherHRNet with `higherhrnet` (the other models
+    are then built as with no pipeline, as in the JAX registry).
 
     The configuration is the pipeline's, else the default one. `device`:
     where the runners run; the pipeline's device by default, else CUDA.
@@ -1117,6 +1127,9 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
     from human_body_proportion_estimation_tpu_torch.pipeline.backends import (
         YoloBackend,
     )
+    from human_body_proportion_estimation_tpu_torch.pipeline.bottomup import (
+        BottomUpPipeline,
+    )
     from human_body_proportion_estimation_tpu_torch.utils.config import (
         PipelineConfig,
     )
@@ -1129,6 +1142,10 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
     if pipeline is not None:
         cfg = pipeline.config
         origin = pipeline.weights_origin
+        device = device or pipeline.device
+    if isinstance(pipeline, BottomUpPipeline):
+        higher, higher_weights = pipeline.model, origin["pose"]
+    elif pipeline is not None:
         if isinstance(pipeline.pose, HRNet):
             pose, pose_weights = pipeline.pose, origin["pose"]
         elif isinstance(pipeline.pose, HigherHRNetHeatmaps):
@@ -1144,7 +1161,6 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
         else:
             det = backend.detector
             det_config, det_weights = det.config, origin["detector"]
-        device = device or pipeline.device
     device = torch.device(device or "cuda")
 
     reg = ModelRegistry()

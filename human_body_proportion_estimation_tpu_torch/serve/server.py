@@ -1,5 +1,6 @@
 """HTTP serving edge of the port, self-contained on the stdlib: the JAX
-package's `serve/server.py` over the port's `InferencePipeline` on the GPU.
+package's `serve/server.py` over the port's `InferencePipeline` (or, with
+`--bottom-up`, its `BottomUpPipeline`) on the GPU.
 
 Route/response parity with `uvicorn_server/server.py` and the JAX server
 (same status codes, JSON shapes and messages):
@@ -890,7 +891,6 @@ def create_server(app: ServingApp, host: str, port: int) -> ThreadingHTTPServer:
 _NOT_YET = (
     ("artifact_dir", "--artifact-dir", "item 16 (the deployable artifact)"),
     ("data_parallel", "--data-parallel", "item 16 (multi-device serving)"),
-    ("bottom_up", "--bottom-up", "item 13 (bottom-up pose)"),
     ("checkpoint_dir", "--checkpoint-dir", "item 17 (importers: orbax "
                                            "checkpoints)"),
 )
@@ -939,8 +939,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-compile-cache", action="store_true",
                         help="accepted and ignored, as --compile-cache-dir")
     parser.add_argument("--bottom-up", action="store_true",
-                        help="serve the bottom-up pipeline (not ported yet: "
-                             "exits)")
+                        help="serve the bottom-up pipeline (HigherHRNet + "
+                             "associative-embedding grouping, no detector; "
+                             "--detector is not read)")
     return parser
 
 
@@ -951,7 +952,9 @@ def main(argv=None):
         value = getattr(args, attr)
         if value and not (attr == "data_parallel" and value <= 1):
             parser.error(f"{flag} is not ported yet: ROADMAP.md {item}")
-    if args.detector in NOT_PORTED_DETECTORS:
+    # --bottom-up never reads --detector (the JAX server returns before it
+    # does), so the default ssd_mobilenet serves it
+    if not args.bottom_up and args.detector in NOT_PORTED_DETECTORS:
         parser.error(f"--detector {args.detector} is not ported yet: "
                      f"ROADMAP.md {NOT_PORTED_DETECTORS[args.detector]}")
     if args.grpc_port:
@@ -968,7 +971,30 @@ def main(argv=None):
                          f"cannot start ({e}); pass --grpc-port 0 to serve "
                          "HTTP alone")
 
-    _serve(args, build_pipeline(args))
+    _serve(args, build_bottomup_pipeline() if args.bottom_up
+           else build_pipeline(args))
+
+
+def build_bottomup_pipeline():
+    """The `--bottom-up` pipeline on the GPU (`pipeline.bottomup.
+    build_default`), announced as the JAX server announces it: the
+    certified bottom-up checkpoint's path, or a loud warning at random."""
+    from human_body_proportion_estimation_tpu_torch.models.weights import (
+        default_certified_bottomup_checkpoint,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.bottomup import (
+        build_default,
+    )
+
+    pipeline = build_default(device="cuda")
+    if pipeline.weights_origin["pose"] == "synthetic-certified":
+        print("serving committed synthetic-certified bottom-up weights "
+              f"({default_certified_bottomup_checkpoint()})", flush=True)
+    else:
+        print("WARNING: serving RANDOM-INIT HigherHRNet — outputs are "
+              "garbage; pass --checkpoint-dir (see /health 'weights')",
+              flush=True)
+    return pipeline
 
 
 def build_pipeline(args) -> InferencePipeline:
@@ -1025,7 +1051,7 @@ def _serve(args, pipeline):
         print(f"grpc on {args.host}:{bound}", flush=True)
     log.info("http_listening", host=args.host, port=args.port,
              engine="native" if app.native else "python",
-             detector=args.detector)
+             detector="bottom_up" if args.bottom_up else args.detector)
     print(f"serving on {args.host}:{args.port}", flush=True)
     try:
         server.serve_forever()

@@ -28,7 +28,9 @@ for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "serve.hbpe_pb2", "serve.kserve_pb2", "serve.wire",
              "serve.client", "serve.perf", "models.higherhrnet",
              "pipeline.detect", "pipeline.pose", "cli.detect_edet",
-             "cli.pose_est"):
+             "cli.pose_est", "ops.ae_grouping", "pipeline.bottomup",
+             "cli.detect_pose_bottomup", "metrics", "metrics.detection",
+             "metrics.pose", "cli.evaluate"):
     assert port.__name__ + "." + name in names, name
 import chip_smoke
 assert not [m for m in sys.modules if m.startswith(("jax", "flax"))
@@ -110,15 +112,23 @@ def test_entry_point_defaults_to_cuda_without_fallback():
 
     from human_body_proportion_estimation_tpu_torch.cli import (
         detect_edet,
+        detect_pose_bottomup,
         pose_est,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.bottomup import (
+        BottomUpPipeline,
+        build_default,
     )
     from human_body_proportion_estimation_tpu_torch.pipeline.host import (
         InferencePipeline,
     )
 
     for fn in (InferencePipeline, detect_edet.run_demo_odet,
-               pose_est.run_demo_pose_est):
+               pose_est.run_demo_pose_est, BottomUpPipeline,
+               detect_pose_bottomup.run_bottomup,
+               build_default):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
-        with pytest.raises((RuntimeError, AssertionError)):
-            InferencePipeline(device="cuda")
+        for make in (InferencePipeline, BottomUpPipeline):
+            with pytest.raises((RuntimeError, AssertionError)):
+                make(device="cuda")

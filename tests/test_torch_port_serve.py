@@ -596,7 +596,7 @@ def test_stage_timer_snapshot_matches_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--bottom-up"], ["--artifact-dir", "x"],
+    ["--bottom-up", "--data-parallel", "2"], ["--artifact-dir", "x"],
     ["--data-parallel", "2"], ["--detector", "ssd_mobilenet"],
     ["--checkpoint-dir", "x"],
 ])
