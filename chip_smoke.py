@@ -8,7 +8,7 @@
     python3 chip_smoke.py --edge-sweep    # + the serving edge's load under
                                           # other settings (engine, batches
                                           # in flight, client threads)
-    python3 chip_smoke.py --phases UE     # phase 3, then only the phases
+    python3 chip_smoke.py --phases T      # phase 3, then only the phases
                                           # named (no result line)
     python3 chip_smoke.py --time-kernels [--repo DIR] [--kernel NAME]
                                           # kernel times only (all, or those
@@ -155,8 +155,28 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      box and keypoint AP50 equal to JAX's run_eval recorded there, every
      other AP within the most one match at one threshold changes it on
      these matches (a tenth of that for the mAPs), PCK within one keypoint.
-  4. report: a `kernels` JSON line (launches: phases 3, A, C, Y, D, U and
-     E), the card's name and power limit, and the result line
+  T. training (ROADMAP item 15): float64 and float32 (TF32 off) train
+     steps at full width and depth, batch 2, three Adam steps each
+     (HRNet-W32 384x288 on the certified weights, EfficientDet-Lite0
+     480x640 and HigherHRNet-W32 512x512 from numpy-drawn flax-like inits;
+     tests/torch_port_train.py) against the JAX float64 goldens of
+     tests/data/torch_port/train_goldens.json, and the pose case's bf16
+     steps (f32 parameters) against its JAX bfloat16 goldens (losses,
+     gradient norms,
+     two BatchNorms' running statistics, at the file's tolerance for the
+     dtype, case and group of figures); bf16
+     training imgs/s, peak memory and the loss trend of pose B=16, Lite0
+     detection B=8 and bottom-up B=8, and a profile of the pose step
+     (chiprun_out/train_profile_pose_b16.txt); `cli.certify.main` in
+     process on a short budget (Lite0, 200 + 200 steps at batch 4) and
+     `cli.certify_bottomup.main` (200 steps at batch 4): the JAX report's
+     keys, finite falling losses, the reload equal to the trained state
+     (checked inside the CLIs), every request of the served sweeps
+     answered, launches counted from 0 (certify: each kernel at least
+     once; bottom-up: none); the gates are printed, not asserted (they
+     need the full budget).
+  4. report: a `kernels` JSON line (launches: phases 3, A, C, Y, D, U, E
+     and T), the card's name and power limit, and the result line
      {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX; builds into the package's gitignored `build/`.
@@ -2816,6 +2836,217 @@ def run_evaluate(k, lite4_pipe, repo):
     return counted.total
 
 
+# --------------------------------------------------------------------- #
+# phase T: training (ROADMAP item 15)
+
+TRAIN_KINDS = ("pose", "det", "bottomup")
+# the throughput batches: pose B=16 (certify's --pose-batch), Lite0
+# detection B=8 (--det-batch) and bottom-up B=8 (certify_bottomup --batch)
+TRAIN_BATCH = {"pose": 16, "det": 8, "bottomup": 8}
+CERTIFY_KEYS = {"mode", "platform", "img_hw", "crop_hw", "pose_loss_first",
+                "pose_loss_last", "gate_gamma", "det_loss_first",
+                "det_loss_last", "pose_val", "det_val", "served",
+                "coco_eval", "gates", "certified", "wall_s"}
+CERTIFY_BU_KEYS = {"mode", "platform", "input_hw", "max_people",
+                   "loss_first", "loss_last", "direct", "http", "gates",
+                   "certified", "wall_s"}
+
+
+def train_model(cases, kind, dtype):
+    """The case's model at `dtype` (the certified W32 for pose, the
+    flax-like seeded inits for the others)."""
+    import torch
+
+    model, _ = cases.model_and_state(kind, dtype)
+    # bf16 computes on f32 parameters, as the models train
+    return model if dtype == torch.bfloat16 else model.to(dtype)
+
+
+def train_throughput(cases, kind, dev, warmup=3, steps=20):
+    """bf16 train steps of the case's model at TRAIN_BATCH on the card:
+    (imgs/s over `steps` after `warmup`, peak allocated GB, losses)."""
+    import torch
+
+    model = train_model(cases, kind, torch.bfloat16).to(dev)
+    state = cases.make_state(kind, model)
+    t = cases.to_device(cases.inputs(kind, TRAIN_BATCH[kind]), dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [cases.train_once(kind, state, t) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [cases.train_once(kind, state, t) for _ in range(steps)]
+    torch.cuda.synchronize()
+    rate = steps * TRAIN_BATCH[kind] / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    return rate, peak, [float(x) for x in losses], (model, state, t)
+
+
+def train_profile(cases, kind, model_state_batch, steps=3,
+                  out_name="train_profile_pose_b16.txt"):
+    """torch.profiler over `steps` bf16 train steps: (wall ms a step, device
+    busy ms a step, CUDA launches a step); the kernel table goes to
+    chiprun_out/<out_name>."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, state, t = model_state_batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cases.train_once(kind, state, t)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in cuda) / 1e3 / steps
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", out_name), "w") as fh:
+        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                           row_limit=60))
+        fh.write("\n")
+        fh.write(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                           row_limit=40))
+    return wall, busy, len(cuda) / steps
+
+
+def check_certify_report(report, keys, what):
+    assert set(report) == keys, (what, sorted(set(report) ^ keys))
+    assert report["platform"] == "gpu" and report["mode"] == "chip", report
+    return report
+
+
+def run_training(k, dev, repo):
+    """Phase T: the port's training on the card. (1) float64 and f32 (TF32
+    off) full-width train steps against the JAX float64 goldens, bf16
+    steps against the JAX bfloat16 goldens
+    (tests/data/torch_port/train_goldens.json, the cases of
+    tests/torch_port_train.py); (2) bf16 training throughput (pose B=16,
+    Lite0 detection B=8, bottom-up B=8), peak memory, the loss trend and a
+    profile of the pose step; (3) `cli.certify.main` in process on a short
+    budget, counted from 0: the report has the JAX keys, the losses are
+    finite and fall, the reload equals the trained state (checked inside),
+    the served sweep answered, and every kernel launched; (4)
+    `cli.certify_bottomup.main` the same way, launching none. Returns the
+    launches of (3) and (4)."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.cli import (
+        certify as certify_cli,
+        certify_bottomup as certify_bu_cli,
+    )
+
+    t_phase = time.perf_counter()
+    cases = load_tests_module("torch_port_train")
+    with open(os.path.join(DATA, "train_goldens.json")) as fh:
+        golden = json.load(fh)
+    for kind in TRAIN_KINDS:
+        for name, dtype, ref in (("float64", torch.float64, "cases"),
+                                 ("float32", torch.float32, "cases"),
+                                 ("bfloat16", torch.bfloat16, "cases_bf16")):
+            if kind not in golden[ref]:     # bf16: the pose case only
+                continue
+            t0 = time.perf_counter()
+            tol = golden["tolerance"][name][kind]
+            model = train_model(cases, kind, dtype)
+            got = cases.run_port(kind, model, cases.inputs(kind), dev)
+            err = cases.compare(got, golden[ref][kind])
+            grouped = cases.group(err)
+            assert all(grouped[g] <= tol[g] for g in tol), \
+                (kind, name, err, tol)
+            log(f"phase T: {kind} {name} train steps (batch {cases.BATCH}, "
+                f"3 Adam steps) against the JAX "
+                f"{'bfloat16' if ref == 'cases_bf16' else 'float64'} "
+                f"goldens: losses {json.dumps(got['losses'])}, grad norm "
+                f"{got['grad_norm']:.6g}; relative differences "
+                f"{json.dumps({g: float(f'{v:.3g}') for g, v in grouped.items()})} "  # noqa: E501
+                f"(tolerances {json.dumps(tol)}; "
+                f"{json.dumps({n: float(f'{v:.3g}') for n, v in err.items()})}) "  # noqa: E501
+                f"in {time.perf_counter() - t0:.1f} s")
+            del model
+            torch.cuda.empty_cache()
+
+    for kind in TRAIN_KINDS:
+        rate, peak, losses, msb = train_throughput(cases, kind, dev)
+        assert all(math.isfinite(x) for x in losses), (kind, losses)
+        log(f"phase T: {kind} bf16 training at batch {TRAIN_BATCH[kind]}: "
+            f"{rate:.2f} imgs/s over 20 steps after 3, peak allocated "
+            f"{peak:.2f} GB, loss {losses[0]:.5g} -> {losses[-1]:.5g} "
+            f"(23 steps on one batch)")
+        if kind == "pose":
+            wall, busy, launches = train_profile(cases, kind, msb)
+            log(f"phase T: pose bf16 train step B=16 under the profiler: "
+                f"{wall:.2f} ms wall, card busy {busy:.2f} ms "
+                f"({100 * busy / wall:.1f}%), {launches:.0f} CUDA launches "
+                f"a step (chiprun_out/train_profile_pose_b16.txt)")
+        del msb
+        torch.cuda.empty_cache()
+
+    # the workdirs hold f32 checkpoints (~130 MB): outside chiprun_out/
+    out = tempfile.mkdtemp(prefix="phase_t_")
+    counted = Counted(k)
+    t0 = time.perf_counter()
+    with counted:
+        rc = certify_cli.main([
+            "--workdir", os.path.join(out, "phase_t_certify"),
+            "--train-scenes", "32", "--det-scenes", "16", "--val-scenes",
+            "4", "--coco-scenes", "8", "--pose-steps", "200", "--pose-batch",
+            "4", "--det-steps", "200", "--det-batch", "4", "--skip-ssd"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "phase_t_certify", "report.json")) as fh:
+        report = check_certify_report(json.load(fh), CERTIFY_KEYS, "certify")
+    assert rc == (0 if report["certified"] else 1), rc
+    for name in ("pose", "det"):
+        first, last = report[f"{name}_loss_first"], report[f"{name}_loss_last"]
+        assert math.isfinite(first) and math.isfinite(last), report
+        assert last < first, (name, first, last)
+    served = report["served"]
+    assert served["scenes"] == 4 and served["detected"] == 4, served
+    assert report["coco_eval"]["images"] == 8, report["coco_eval"]
+    assert all(n > 0 for n in counted.last.values()), counted.last
+    log(f"phase T: cli.certify in process (Lite0, 200 pose steps at batch 4, "
+        f"200 detector steps at batch 4) in {wall:.1f} s: pose loss "
+        f"{report['pose_loss_first']:.5g} -> {report['pose_loss_last']:.5g}, "
+        f"det loss {report['det_loss_first']:.5g} -> "
+        f"{report['det_loss_last']:.5g}, served {served['detected']}/4 "
+        f"(mean |dcm| {served['mean_abs_cm_err']:.4g}), gates (printed, not "
+        f"asserted: they need the full budget) {json.dumps(report['gates'])}"
+        f", launches {counted.last}")
+
+    bu_counted = Counted(k)
+    t0 = time.perf_counter()
+    with bu_counted:
+        rc = certify_bu_cli.main([
+            "--workdir", os.path.join(out, "phase_t_certify_bu"),
+            "--train-scenes", "16", "--val-scenes", "2", "--http-scenes",
+            "2", "--steps", "200", "--batch", "4"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out, "phase_t_certify_bu", "report.json")) as fh:
+        report = check_certify_report(json.load(fh), CERTIFY_BU_KEYS,
+                                      "certify_bottomup")
+    assert rc == (0 if report["certified"] else 1), rc
+    assert math.isfinite(report["loss_first"]) and \
+        report["loss_last"] < report["loss_first"], report
+    # every request answered (a failed POST raises in the sweep); whom
+    # the short-trained model finds is printed, not asserted
+    assert report["http"]["scenes"] == 2 and math.isfinite(
+        report["http"]["mean_http_latency_s"]), report["http"]
+    assert bu_counted.last == dict.fromkeys(KERNELS, 0), bu_counted.last
+    log(f"phase T: cli.certify_bottomup in process (200 steps at batch 4) in "
+        f"{wall:.1f} s: loss {report['loss_first']:.5g} -> "
+        f"{report['loss_last']:.5g}, http {report['http']['detected']}/2, "
+        f"gates (printed) {json.dumps(report['gates'])}, launches "
+        f"{bu_counted.last}")
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"phase T: {time.perf_counter() - t_phase:.1f} s")
+    return counted.total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -2829,7 +3060,7 @@ def main() -> int:
                     help="with --time-kernels: only the cases named so")
     ap.add_argument("--repo", default=REPO,
                     help="checkout whose port package is built and run")
-    ap.add_argument("--phases", default="ABCYDUE",
+    ap.add_argument("--phases", default="ABCYDUET",
                     help="the phases after 3 to run (all by default); a "
                          "subset ends after the kernels line and the "
                          "card's, without the result line")
@@ -2883,12 +3114,13 @@ def main() -> int:
             "D": lambda: run_other_slots(k, dev, pipe, repo),
             "U": lambda: run_bottom_up(k, dev, repo),
             "E": lambda: run_evaluate(k, pipe, repo),
+            "T": lambda: run_training(k, dev, repo),
         }
         # the kernels line counts the launches of every path driven: the
         # main path (phase 3), the serving edge (A), the registry and wire
         # protocols (C), the YOLO slot (Y), the other slots (D), bottom-up
-        # pose (U: none) and the evaluate CLI's pipeline (E), each counted
-        # from 0 just before it
+        # pose (U: none), the evaluate CLI's pipeline (E) and the certify
+        # CLIs of training (T), each counted from 0 just before it
         for name, run in phases.items():
             if name in args.phases:
                 counts = run() or {}
@@ -2919,7 +3151,7 @@ def main() -> int:
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)
-    if args.kernels_only or set("ABCYDUE") - set(args.phases):
+    if args.kernels_only or set("ABCYDUET") - set(args.phases):
         return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

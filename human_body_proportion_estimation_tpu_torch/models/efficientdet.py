@@ -19,6 +19,12 @@ the 100-slot detection tensors (all-class greedy NMS through
 `ops/nms.nms_fixed`). The model registry serves that path, so it adds no
 second copy of the weights.
 
+`model.train()` (flax `train=True`) trains through the canonical head
+(`training/detection.py`): every BatchNorm takes batch statistics
+(`layers.batch_norm`). The head-score kernel's packed weights are keyed on
+the predict conv's version counter, which every in-place optimizer update
+moves, so a serving forward after training scores with the trained weights.
+
 Traps handled here:
   * `jax.image.resize(..., "nearest")` (BiFPN top-down path) samples like
     `F.interpolate(mode="nearest-exact")`, not `mode="nearest"`: at
@@ -204,6 +210,7 @@ class EfficientDet(nn.Module):
                                  fpn, 5)
         self.box_net = HeadNet(na * 4, cfg.head_repeats, fpn, 5)
         self._class_predict_cache = (None, None, None)
+        self.eval()     # flax's train=False default (layers.batch_norm)
 
     def forward(self, images: torch.Tensor, all_classes: bool = False
                 ) -> Tuple[torch.Tensor, ...]:
@@ -211,6 +218,11 @@ class EfficientDet(nn.Module):
         box_flat [B, N, 4]). `all_classes=True`: the canonical head,
         (cls_flat [B, N, C] f32 logits, box_flat [B, N, 4])."""
         cfg = self.config
+        if self.training and not all_classes:
+            # the JAX model takes the kernel only when not training
+            # (efficientdet.py:273); the kernel has no backward
+            raise ValueError("a training forward runs the canonical head: "
+                             "pass all_classes=True")
         b = images.shape[0]
         na, nc = cfg.anchors.anchors_per_cell, cfg.num_classes
         # automl lite preprocessing: scale to [-1, 1]

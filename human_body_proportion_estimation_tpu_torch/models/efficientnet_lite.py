@@ -108,6 +108,7 @@ class EfficientNetLite(nn.Module):
                 cin = c
             if si in (2, 4, 6):
                 self.out_channels.append(c)
+        self.eval()     # flax's train=False default (layers.batch_norm)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.stem(x)

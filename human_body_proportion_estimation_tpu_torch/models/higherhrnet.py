@@ -65,6 +65,7 @@ class HigherHRNet(HRNetTrunk):
         for i in range(num_deconv_blocks):
             self.add_module(f"deconv_block{i}", BasicBlock(w, w))
         self.head2 = Conv2d(w, k, 1, bias=True)
+        self.eval()     # flax's train=False default (layers.batch_norm)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         feat = self.features(x)                       # [N, W, H/4, W/4]
@@ -85,6 +86,7 @@ class HigherHRNetHeatmaps(nn.Module):
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.higher = HigherHRNet(config, dtype=dtype)
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.higher(x)["output_2"]

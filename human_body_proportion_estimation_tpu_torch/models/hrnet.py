@@ -14,6 +14,9 @@ Module names follow the flax tree (`stem1`, `layer1_{k}`,
 padding, like the official pose_hrnet (flax `torch_pad=True`).
 
 I/O: [N, 3, H, W] in [0, 1] -> [N, K, H/4, W/4] float32 heatmaps.
+
+`model.train()` is flax's `train=True`: batch statistics in every
+BatchNorm (`layers.batch_norm`), and the last module's full fusion.
 """
 
 from __future__ import annotations
@@ -176,6 +179,7 @@ class HRNetTrunk(nn.Module):
                 self.add_module(f"stage{s + 2}_module{m}",
                                 HRModule(channels, cfg.blocks_per_branch))
             prev = channels
+        self.eval()     # flax's train=False default (layers.batch_norm)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
@@ -187,9 +191,12 @@ class HRNetTrunk(nn.Module):
         for s, n_modules in enumerate(cfg.stage_modules):
             xs = getattr(self, f"transition{s + 2}")(xs)
             for m in range(n_modules):
+                # the last module feeds only branch 0 to the head; in
+                # training the flax module still runs every fuse output,
+                # whose BatchNorms move their running statistics
                 last = s == n_stages - 1 and m == n_modules - 1
                 xs = getattr(self, f"stage{s + 2}_module{m}")(
-                    xs, 1 if last else None)
+                    xs, 1 if last and not self.training else None)
         return xs[0]
 
 

@@ -5,9 +5,12 @@ the same function:
   * Tensors are NCHW inside the models; parameters stay float32 and are
     cast to the activation dtype (bf16 on the main path) at each conv, as
     flax's `dtype=bfloat16, param_dtype=float32` does.
-  * BatchNorm runs with running statistics only (inference). A bf16 input
-    is normalized in f32 and rounded back, as flax promotes against its f32
-    statistics.
+  * BatchNorm follows `nn.Module.training`: in eval mode it normalizes
+    with the running statistics; in train mode (`model.train()`, flax's
+    `train=True`) with the batch's, and it moves the running statistics
+    the way flax does (`batch_norm`). The port's models are built in eval
+    mode, as flax's `train` defaults to False. A bf16 input is normalized
+    in f32 and rounded back, as flax promotes against its f32 statistics.
   * Module and attribute names equal the flax module names, so the
     converter in `models/weights.py` maps a flax tree path to a
     `state_dict` key one to one.
@@ -81,10 +84,33 @@ class Conv2d(nn.Conv2d):
 
 
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Inference BatchNorm with running statistics; f32 math, output in
-    x's dtype."""
-    return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, False, 0.0, bn.eps)
+    """BatchNorm of NCHW `x` in f32 math, output in x's dtype.
+
+    Eval mode: the running statistics. Train mode (`bn.training`): flax's
+    train-mode BatchNorm. The batch mean and the BIASED variance over N, H
+    and W normalize `x` (gradients flow through both), and the running
+    statistics move as ``ra = (1 - m) ra + m batch`` with the biased
+    variance, m = `bn.momentum` in torch's convention: torch's default 0.1
+    is flax's `momentum=0.9` of the JAX model zoo (models/layers.py:57-61,
+    :289-290, efficientdet.py:209-211, higherhrnet.py:94-95), YOLOv5 sets
+    0.03 (flax 0.97). `F.batch_norm(training=True)` would move
+    `running_var` with the unbiased variance (n / (n - 1) larger), so it
+    fills two scratch buffers at momentum 1 and the update is written
+    here."""
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps)
+    mean = torch.zeros_like(bn.running_mean)
+    var = torch.zeros_like(bn.running_var)
+    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        # the scratch buffers are saved for backward: read, never write
+        biased = var * ((n - 1) / n)
+        keep = 1.0 - bn.momentum
+        bn.running_mean.copy_(keep * bn.running_mean + bn.momentum * mean)
+        bn.running_var.copy_(keep * bn.running_var + bn.momentum * biased)
+    return y
 
 
 class ConvBN(nn.Module):
@@ -162,6 +188,42 @@ class SeparableConvBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = batch_norm(self.bn, self.pointwise(self.depthwise(x)))
         return x if self.act is None else self.act(x)
+
+
+def _fan_in(module: nn.Module) -> int:
+    """The inputs one output of `module`'s kernel sums over, as flax counts
+    them on its HWIO kernel (kh * kw * in / groups; for a transposed conv
+    kh * kw * in)."""
+    w = module.weight
+    if isinstance(module, nn.ConvTranspose2d):
+        return w.shape[0] * w.shape[2] * w.shape[3]
+    return w[0].numel()
+
+
+def init_flax_default(model: nn.Module,
+                      generator: torch.Generator) -> nn.Module:
+    """Re-initialize `model` the way flax's `init` does, drawing from
+    `generator` (a CPU generator; the model may live on any device):
+    conv and transposed-conv kernels `lecun_normal` (a normal truncated at
+    two standard deviations, rescaled to variance 1 / fan_in), biases 0,
+    BatchNorm at unit scale, zero shift, mean 0 and variance 1. The JAX
+    package trains from this init (`training/trainer.create_train_state`);
+    `init_random`, torch's own, has a third of its variance."""
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
+                # truncated_normal's stddev correction, flax
+                # initializers.variance_scaling
+                std = (1.0 / _fan_in(module)) ** 0.5 / .87962566103423978
+                w = torch.empty(module.weight.shape)
+                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                module.weight.copy_(w)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, nn.BatchNorm2d):
+                module.reset_parameters()
+    return model
 
 
 def init_random(model: nn.Module) -> nn.Module:

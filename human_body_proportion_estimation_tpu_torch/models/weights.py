@@ -20,7 +20,18 @@ to a `state_dict` key one to one:
 (+ a zero `num_batches_tracked` per BatchNorm, which inference never
 reads). Loaded with `load_state_dict(..., strict=True)`, a flax leaf the
 port has no place for, or a port tensor the checkpoint does not fill,
-raises.
+raises. `state_dict_to_flax` is the exact inverse.
+
+Writers, for the trainers (`training/`):
+  * `save_compact_checkpoint`: the JAX package's compact `.npz`
+    (weights.py:85-100): f16 leaves under '/'-joined flax paths, in the
+    order of flax's sorted trees, so the JAX `load_compact_checkpoint`
+    reads what the port writes.
+  * `save_training_checkpoint` / `load_training_checkpoint`: the
+    `{params, batch_stats, step}` tree the JAX trainers checkpoint, as an
+    f32 `.npz`. The JAX package writes it with Orbax
+    (weights.py:39-66, training/loop.py:81-94), and `orbax.checkpoint`
+    imports jax; reading Orbax checkpoints is ROADMAP.md item 17.
 """
 
 from __future__ import annotations
@@ -127,6 +138,97 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                     torch.zeros((), dtype=torch.long))
     return sd
 
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The port's `state_dict` -> {'params': ..., 'batch_stats': ...} flax
+    tree of f32 numpy arrays: the exact inverse of `flax_to_state_dict`
+    (OIHW -> HWIO, the transposed conv's flip undone, BatchNorm weight ->
+    scale, running statistics -> batch_stats; `num_batches_tracked`, which
+    flax has no leaf for, is dropped)."""
+    tree: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        module, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        if leaf == "num_batches_tracked":
+            continue
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        is_bn = f"{module}.running_mean" in state
+        if leaf in ("running_mean", "running_var"):
+            collection, name = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and is_bn:
+            collection, name = "params", "scale"
+        elif leaf == "weight":
+            collection, name = "params", "kernel"
+            if module.rsplit(".", 1)[-1] in _TRANSPOSED_CONVS:
+                arr = np.transpose(arr[:, :, ::-1, ::-1], (2, 3, 0, 1))
+            else:
+                arr = np.transpose(arr, (2, 3, 1, 0))   # OIHW -> HWIO
+        elif leaf == "bias":
+            collection, name = "params", "bias"
+        else:
+            raise KeyError(f"{key}: unknown leaf")
+        node = tree[collection]
+        for part in module.split(".") if module else ():
+            node = node.setdefault(part, {})
+        node[name] = np.ascontiguousarray(arr, np.float32)
+    if not tree["batch_stats"]:
+        del tree["batch_stats"]
+    return tree
+
+
+def _flat_flax(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """'/'-joined leaf paths of a flax tree in the order of
+    `jax.tree_util.tree_flatten_with_path` (dict keys sorted)."""
+    out: Dict[str, np.ndarray] = {}
+    for k in sorted(tree):
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(tree[k], Mapping):
+            out.update(_flat_flax(tree[k], name))
+        else:
+            out[name] = np.asarray(tree[k])
+    return out
+
+
+def save_compact_checkpoint(path: str, det_state, pose_state) -> None:
+    """Write the detector and pose slots (port `state_dict`s; None or {}
+    for an empty slot) into one compressed `.npz` that the JAX package's
+    `load_compact_checkpoint` reads: float leaves stored float16 under
+    'det/...' and 'pose/...' flax paths."""
+    flat: Dict[str, np.ndarray] = {}
+    for prefix, slot in (("det", det_state), ("pose", pose_state)):
+        tree = state_dict_to_flax(slot) if slot else {}
+        for name, arr in _flat_flax(tree, prefix).items():
+            if arr.dtype in (np.float32, np.float64):
+                arr = arr.astype(np.float16)
+            flat[name] = arr
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **flat)
+
+
+def save_training_checkpoint(path: str, state: Mapping[str, torch.Tensor],
+                             step: int = 0) -> None:
+    """Write one model's `state_dict` as the `{params, batch_stats, step}`
+    tree, an f32 `.npz`, exactly."""
+    flat = _flat_flax(state_dict_to_flax(state))
+    flat["step"] = np.asarray(step, np.int64)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_training_checkpoint(path: str) -> Tuple[Dict, int]:
+    """(flax tree {'params', 'batch_stats'} of f32 numpy arrays, step) of a
+    `save_training_checkpoint` file; `flax_to_state_dict` turns the tree
+    into the port's `state_dict`."""
+    data = np.load(path)
+    tree: Dict[str, Dict] = {}
+    for name in data.files:
+        if name == "step":
+            continue
+        parts = name.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = data[name]
+    return tree, int(data["step"])
 
 
 @contextlib.contextmanager

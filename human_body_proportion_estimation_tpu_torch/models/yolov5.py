@@ -74,6 +74,7 @@ class ConvBnSiLU(ConvBN):
     def __init__(self, cin: int, cout: int, k: int = 1, stride: int = 1):
         super().__init__(cin, cout, k, stride, act=F.silu, bn_eps=1e-3,
                          same=False)
+        self.bn.momentum = 0.03     # flax momentum 0.97 (yolov5.py:78)
 
 
 class Bottleneck(nn.Module):
@@ -161,6 +162,7 @@ class YoloV5(nn.Module):
         for li, c in enumerate((w(256), w(512), w(1024))):
             self.add_module(f"detect{li}", Conv2d(c, no, 1, bias=True,
                                                   same=False))
+        self.eval()     # flax's train=False default (layers.batch_norm)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = x.to(self.dtype)

@@ -1,5 +1,5 @@
-"""Package-level guarantees of the port: it imports without JAX, flax or the
-JAX package, and its HTTP edge and registry without grpc or protobuf; the
+"""Package-level guarantees of the port: it imports without JAX, flax, optax,
+orbax or the JAX package, and its HTTP edge and registry without grpc or protobuf; the
 committed certified checkpoint converts into the
 full-width port models with every tensor placed; entry points default to
 CUDA and do not fall back to the CPU."""
@@ -16,24 +16,29 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None
-sys.modules["flax"] = None
-sys.modules["human_body_proportion_estimation_tpu"] = None
+for blocked in ("jax", "flax", "optax", "orbax", "orbax.checkpoint",
+                "human_body_proportion_estimation_tpu"):
+    sys.modules[blocked] = None
 import human_body_proportion_estimation_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 48, names
+assert len(names) >= 59, names
 for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "serve.hbpe_pb2", "serve.kserve_pb2", "serve.wire",
              "serve.client", "serve.perf", "models.higherhrnet",
              "pipeline.detect", "pipeline.pose", "cli.detect_edet",
              "cli.pose_est", "ops.ae_grouping", "pipeline.bottomup",
              "cli.detect_pose_bottomup", "metrics", "metrics.detection",
-             "metrics.pose", "cli.evaluate"):
+             "metrics.pose", "cli.evaluate", "training", "training.synthetic",
+             "training.data", "training.trainer", "training.loop",
+             "training.detection", "training.certify", "training.bottomup",
+             "training.certify_bottomup", "cli.certify",
+             "cli.certify_bottomup"):
     assert port.__name__ + "." + name in names, name
 import chip_smoke
-assert not [m for m in sys.modules if m.startswith(("jax", "flax"))
+assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax",
+                                                   "orbax"))
             and sys.modules[m] is not None]
 print("ok", len(names))
 """
