@@ -175,8 +175,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      answered, launches counted from 0 (certify: each kernel at least
      once; bottom-up: none); the gates are printed, not asserted (they
      need the full budget).
-  4. report: a `kernels` JSON line (launches: phases 3, A, C, Y, D, U, E
-     and T), the card's name and power limit, and the result line
+  X. the deployable artifact (ROADMAP item 16, first half): phase 3's
+     certified Lite4 -> W32 pipeline exported with torch.export at B=16
+     (`pipeline/export.py`, the three kernels as `hbpe` ops of its graph),
+     timed; restored in a fresh process (`--artifact-worker`), which
+     builds no port module and reads no .npz, and serves the 3 scenes
+     repeated to 16 and to 20 images (chunks of 16 and 4): one launch of
+     each kernel an artifact batch, one packing of the head weights over
+     6 batches, rows against the live forward at B=16 (identical
+     expected, phase 3's rule the limit) and against the goldens;
+     `serve.server --artifact-dir --prewarm` beside the live server (start
+     to ready, /health, 48 file-route requests from 16 clients against
+     the goldens x height/175); imgs/s at B=16 in turns with the live
+     pipeline; a seeded f32 YOLOv5m and a seeded f32 bottom-up artifact at
+     B=2, each identical to its live pipeline (YOLO: one NMS and one
+     decode launch a batch; bottom-up none), made by a subprocess
+     (`--slots-worker`) beside the export and the restore, and waited for
+     before the servers start; `compile_cache.enable(dir)`: one process
+     (`--cache-worker`, started with the phase) builds the kernels into
+     dir with nvcc, a second finds them there with nvcc forbidden.
+  4. report: a `kernels` JSON line (launches: phases 3, A, C, Y, D, U, E,
+     T and X), the card's name and power limit, and the result line
      {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX; builds into the package's gitignored `build/`.
@@ -201,6 +220,7 @@ F32_FLOP_PER_S = 67e12         # CUDA-core f32
 HEAD_TOL = (1e-3, 1e-3)        # (abs, rel), kernel vs plain head-score
 GOLDEN_MEAN_CM, GOLDEN_MAX_CM = 1.0, 6.0
 FILE_ROUTE = "/body_proportion_length_estimation_file"
+ALL_PHASES = "ABCYDUETX"
 
 
 def log(msg: str) -> None:
@@ -1515,9 +1535,19 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
 # phase Y: the YOLOv5 detector slot
 
 
+_YOLO_STATE = {}
+
+
 def yolo_state(golden, images):
     """The goldens' seeded YOLOv5m weights, made again on this machine's
-    CPU from the seed and biases the file records (a port `state_dict`)."""
+    CPU from the seed and biases the file records (a port `state_dict`),
+    once a run (phases Y and X share it)."""
+    if golden["seed"] not in _YOLO_STATE:
+        _YOLO_STATE[golden["seed"]] = _make_yolo_state(golden, images)
+    return _YOLO_STATE[golden["seed"]]
+
+
+def _make_yolo_state(golden, images):
     import numpy as np
     import torch
 
@@ -2269,10 +2299,13 @@ def run_other_slots(k, dev, lite4_pipe, repo, batch=16):
         rates["efficientdet_lite0"].append(imgs_per_s(lpipe, batch16,
                                                       height, thres))
     a, c, f = 9, 90, 64
+    # the library call takes the weight in the features' bf16, as the
+    # kernel's packing holds it
+    w_lib = w_cls.to(torch.bfloat16)
 
     def library(zs):
         for z in zs:
-            torch.matmul(z, w_cls.t()).view(*z.shape[:3], a, c).amax(-1)
+            torch.matmul(z, w_lib.t()).view(*z.shape[:3], a, c).amax(-1)
 
     times = {}
     for name, zs in (("B=16", zs16), ("B=1", zs1)):
@@ -3047,6 +3080,439 @@ def run_training(k, dev, repo):
     return counted.total
 
 
+# --------------------------------------------------------------------- #
+# phase X: the deployable artifact (ROADMAP item 16, first half)
+
+
+def _port_modules_built():
+    """Patches `torch.nn.Module.__init__` to record every module of the
+    port constructed from now on; returns the list it fills."""
+    import torch
+
+    built, init = [], torch.nn.Module.__init__
+
+    def counting_init(self, *a, **kw):
+        if type(self).__module__.startswith(
+                "human_body_proportion_estimation_tpu_torch"):
+            built.append(type(self).__name__)
+        init(self, *a, **kw)
+
+    torch.nn.Module.__init__ = counting_init
+    return built
+
+
+def artifact_worker(directory, out_path):
+    """--artifact-worker: restore the artifact in this fresh process and
+    serve the 3 scenes repeated to 16 and to 20 images (chunks of 16 and
+    4), recording what phase X checks: the restore and first-answer
+    seconds, the launches of each batch, the packings of the head weights
+    over the run, the port modules built and the .npz files read, and the
+    packed rows."""
+    t_start = time.perf_counter()
+    import numpy as np
+
+    built = _port_modules_built()
+    npz, real_load = [], np.load
+
+    def counting_load(path, *a, **kw):
+        npz.append(str(path))
+        return real_load(path, *a, **kw)
+
+    np.load = counting_load
+    from human_body_proportion_estimation_tpu_torch.ops import kernels as k
+    from human_body_proportion_estimation_tpu_torch.pipeline.export import (
+        ArtifactPipeline,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        decode_image_bytes,
+    )
+
+    packs, real_pack = [], k.pack_head_weights
+
+    def counting_pack(*a, **kw):
+        packs.append(1)
+        return real_pack(*a, **kw)
+
+    k.pack_head_weights = counting_pack
+    import torch
+
+    load_s, real_export_load = [], torch.export.load
+
+    def timed_export_load(*a, **kw):
+        t = time.perf_counter()
+        ep = real_export_load(*a, **kw)
+        load_s.append(time.perf_counter() - t)
+        return ep
+
+    torch.export.load = timed_export_load
+    with open(os.path.join(DATA, "goldens.json")) as fh:
+        golden = json.load(fh)
+    images = []
+    for name in golden["scenes"]:
+        with open(os.path.join(DATA, name), "rb") as fh:
+            images.append(decode_image_bytes(fh.read()))
+    height, thres = golden["person_height_cm"], golden["det_threshold"]
+    batch16 = [images[i % 3] for i in range(16)]
+    batch20 = [images[i % 3] for i in range(20)]
+
+    t0 = time.perf_counter()
+    pipe = ArtifactPipeline(directory, device="cuda")
+    restore_s = time.perf_counter() - t0
+    k.reset_launch_counts()
+    rows16 = pipe.infer_serving(batch16, height, thres)
+    first_answer_s = time.perf_counter() - t0
+    launches16 = k.launch_counts()
+    k.reset_launch_counts()
+    rows20 = pipe.infer_serving(batch20, height, thres)
+    launches20 = k.launch_counts()
+    k.reset_launch_counts()
+    for _ in range(3):
+        pipe.infer_serving(batch16, height, thres)
+    launches_more = k.launch_counts()
+    nodes = {}
+    for node in pipe.artifact.program.graph.nodes:
+        if node.op == "call_function":
+            key = str(node.target)
+            nodes[key] = nodes.get(key, 0) + 1
+    with open(out_path, "w") as fh:
+        json.dump(dict(
+            restore_s=restore_s, export_load_s=load_s[0],
+            first_answer_s=first_answer_s,
+            since_start_s=time.perf_counter() - t_start,
+            launches16=launches16, launches20=launches20,
+            launches_more=launches_more, packs=len(packs), built=built,
+            npz=npz, rows16=rows16.tolist(), rows20=rows20.tolist(),
+            graph_nodes=sum(nodes.values()),
+            graph_top=sorted(nodes.items(), key=lambda kv: -kv[1])[:8],
+            stages=sorted(pipe.stages.snapshot()) if pipe.stages else None,
+        ), fh)
+    return 0
+
+
+def cache_worker(directory, forbid_nvcc):
+    """--cache-worker: `compile_cache.enable(directory)`, then build and
+    load the kernel library; with `forbid_nvcc` a build that needs nvcc
+    fails. Prints the library's path and the seconds it took."""
+    from human_body_proportion_estimation_tpu_torch.ops import build
+    from human_body_proportion_estimation_tpu_torch.utils import (
+        compile_cache,
+    )
+
+    compile_cache.enable(directory)
+    if forbid_nvcc:
+        def no_nvcc():
+            raise RuntimeError("the cache missed: nvcc was asked for")
+
+        build.find_nvcc = no_nvcc
+    t0 = time.perf_counter()
+    path = build.build()
+    build.load_library()
+    print(json.dumps(dict(path=path, seconds=time.perf_counter() - t0)),
+          flush=True)
+    return 0
+
+
+def slots_worker():
+    """--slots-worker: a seeded f32 YOLOv5m and a seeded f32 bottom-up
+    pipeline on the card, each exported at B=2, restored, and held to its
+    live pipeline on the same images; prints one JSON line of figures and
+    the launches of the artifact batches."""
+    t_start = time.perf_counter()
+    import tempfile
+
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.ops import kernels as k
+    from human_body_proportion_estimation_tpu_torch.pipeline.bottomup import (
+        BottomUpPipeline,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.export import (
+        ArtifactPipeline,
+        export_serving_artifact,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        InferencePipeline,
+        decode_image_bytes,
+    )
+
+    dev = torch.device("cuda", 0)
+    tmp = tempfile.mkdtemp(prefix="phase_x_slots_")
+    out = {}
+    with open(os.path.join(DATA, "yolo_goldens.json")) as fh:
+        ygold = json.load(fh)
+    yimgs = []
+    for name in ygold["scenes"]:
+        with open(os.path.join(DATA, name), "rb") as fh:
+            yimgs.append(decode_image_bytes(fh.read()))
+    ypipe = InferencePipeline(det_state=yolo_state(ygold, yimgs), device=dev,
+                              dtype=torch.float32, detector="yolov5m")
+    yart = os.path.join(tmp, "yolov5m_b2")
+    t0 = time.perf_counter()
+    export_serving_artifact(ypipe, yart, batch_size=2)
+    out["yolo_export_s"] = time.perf_counter() - t0
+    yapipe = ArtifactPipeline(yart, device="cuda")
+    height, thres = ygold["person_height_cm"], ygold["det_threshold"]
+    ylive = ypipe.infer_serving(yimgs[:2], height, thres)
+    k.reset_launch_counts()
+    ygot = yapipe.infer_serving(yimgs[:2], height, thres)
+    out["yolo_launches"] = k.launch_counts()
+    out["yolo"] = packed_against(ygot, ylive, "YOLOv5m artifact vs live B=2")
+    out["yolo_persons"] = int((ygot[..., 0] > 0.5).sum())
+    del ypipe, yapipe
+
+    slots = load_tests_module()
+    with open(os.path.join(DATA, "bottomup_goldens.json")) as fh:
+        bgold = json.load(fh)
+    bimgs = list(slots.scenes())
+    bpipe = BottomUpPipeline(
+        pose_state=seeded_higher(slots, bgold["seed"], slots.crops(bimgs)),
+        device=dev, dtype=torch.float32)
+    bart = os.path.join(tmp, "bottomup_b2")
+    t0 = time.perf_counter()
+    export_serving_artifact(bpipe, bart, batch_size=2)
+    out["bottomup_export_s"] = time.perf_counter() - t0
+    bapipe = ArtifactPipeline(bart, device="cuda")
+    blive = bpipe.infer_serving(bimgs[:2], bgold["height_cm"])
+    k.reset_launch_counts()
+    bgot = bapipe.infer_serving(bimgs[:2], bgold["height_cm"])
+    out["bottomup_launches"] = k.launch_counts()
+    out["bottomup"] = packed_against(bgot, blive,
+                                     "bottom-up artifact vs live B=2")
+    out["bottomup_persons"] = int((bgot[..., 0] > 0.5).sum())
+    out["wall_s"] = time.perf_counter() - t_start
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def packed_against(got, ref, what):
+    """Two packed row sets: identical validity, and phase 3's cm rule on
+    the segments visible in both. Returns the figures (the largest
+    |difference| of all values among them)."""
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    assert np.array_equal(got[..., 0] > 0.5, ref[..., 0] > 0.5), \
+        f"{what}: person_valid {got[..., 0]} vs {ref[..., 0]}"
+    both = (got[..., 12:] > 0.5) & (ref[..., 12:] > 0.5)
+    d = np.abs(got[..., 1:12] - ref[..., 1:12])[both]
+    figures = dict(max_abs_diff=float(np.abs(got - ref).max()),
+                   identical=bool(np.array_equal(got, ref)),
+                   segments_both=int(both.sum()),
+                   visibility_mismatch=int(
+                       ((got[..., 12:] > 0.5) != (ref[..., 12:] > 0.5)).sum()),
+                   max_abs_cm=float(d.max()) if d.size else 0.0,
+                   mean_abs_cm=float(d.mean()) if d.size else 0.0)
+    assert d.size == 0 or (d.mean() <= GOLDEN_MEAN_CM
+                           and d.max() <= GOLDEN_MAX_CM), (what, figures)
+    return figures
+
+
+def run_artifact(k, lite4_pipe, repo):
+    """Phase X: the deployable artifact on the card. Returns the launches
+    of the artifact batches run (in process and in the subprocesses)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from human_body_proportion_estimation_tpu_torch.pipeline.export import (
+        ArtifactPipeline,
+        export_serving_artifact,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        decode_image_bytes,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase_x_")
+    me = os.path.abspath(__file__)
+    # the compile cache's first process builds the kernels with nvcc into
+    # a fresh directory meanwhile (it needs no card)
+    kcache = os.path.join(tmp, "kernel_cache")
+    cache1 = subprocess.Popen(
+        [sys.executable, me, "--repo", repo, "--cache-worker", kcache],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # the YOLOv5m and bottom-up artifacts are exported and checked by a
+    # subprocess of their own meanwhile (step 3)
+    slots = subprocess.Popen(
+        [sys.executable, me, "--repo", repo, "--slots-worker"],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    with open(os.path.join(DATA, "goldens.json")) as fh:
+        golden = json.load(fh)
+    scene_bytes = []
+    for name in golden["scenes"]:
+        with open(os.path.join(DATA, name), "rb") as fh:
+            scene_bytes.append(fh.read())
+    images = [decode_image_bytes(b) for b in scene_bytes]
+    height, thres = golden["person_height_cm"], golden["det_threshold"]
+    batch16 = [images[i % 3] for i in range(16)]
+    counted = Counted(k)
+    figures = {}
+
+    # 1. export the certified Lite4 -> W32 program at B = 16
+    art = os.path.join(tmp, "lite4_w32_b16")
+    t0 = time.perf_counter()
+    export_serving_artifact(lite4_pipe, art, batch_size=16)
+    figures["export_s"] = time.perf_counter() - t0
+    figures["program_mb"] = os.path.getsize(
+        os.path.join(art, "pipeline.pt2")) / 2**20
+    with open(os.path.join(art, "meta.json")) as fh:
+        meta = json.load(fh)
+    assert meta["device"] == "cuda" and meta["batch_size"] == 16, meta
+    log(f"phase X: exported the certified Lite4 -> W32 program at B=16 in "
+        f"{figures['export_s']:.1f} s ({figures['program_mb']:.1f} MiB "
+        f"pipeline.pt2)")
+
+    # 2. restore and serve in a fresh process
+    out = os.path.join(tmp, "worker.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, me, "--repo", repo, "--artifact-worker", art, out],
+        cwd=repo, capture_output=True, text=True, timeout=300)
+    figures["worker_wall_s"] = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    with open(out) as fh:
+        w = json.load(fh)
+    one = dict.fromkeys(KERNELS, 1)
+    assert w["built"] == [] and w["npz"] == [], (w["built"], w["npz"])
+    assert w["launches16"] == one, w["launches16"]
+    assert w["launches20"] == dict.fromkeys(KERNELS, 2), w["launches20"]
+    assert w["launches_more"] == dict.fromkeys(KERNELS, 3), w["launches_more"]
+    assert w["packs"] == 1, w["packs"]
+    rows16, rows20 = np.asarray(w["rows16"]), np.asarray(w["rows20"])
+    with counted:
+        live16 = lite4_pipe.infer_serving(batch16, height, thres)
+    vs_live = packed_against(rows16, live16, "artifact B=16 vs live B=16")
+    vs_golden = packed_against(rows16[:3], golden["packed"],
+                               "artifact vs the JAX goldens")
+    assert vs_golden["segments_both"] > 0
+    chunked = packed_against(rows20, [live16[i % 3] for i in range(20)],
+                             "artifact 20 images (16 + 4) vs live B=16")
+    np.testing.assert_array_equal(rows20[:16], rows16)
+    figures.update(restore_s=w["restore_s"],
+                   restore_export_load_s=w["export_load_s"],
+                   graph_nodes=w["graph_nodes"],
+                   graph_top_ops=w["graph_top"],
+                   restore_to_first_answer_s=w["first_answer_s"],
+                   process_start_to_first_answer_s=w["since_start_s"])
+    log(f"phase X: restored in a fresh process (no port module built, no "
+        f".npz read) in {w['restore_s']:.2f} s (torch.export.load "
+        f"{w['export_load_s']:.2f} s of it), first answer "
+        f"{w['first_answer_s']:.2f} s after the restore began (process "
+        f"wall {figures['worker_wall_s']:.1f} s); launches a batch "
+        f"{w['launches16']} (20 images: {w['launches20']}), head weights "
+        f"packed {w['packs']} time over 6 batches; vs live at B=16 "
+        f"{json.dumps(vs_live)}; vs the JAX goldens {json.dumps(vs_golden)};"
+        f" 20 images vs live {json.dumps(chunked)}")
+
+    # 3. the other programs, exported and checked by the subprocess started
+    # at the phase's beginning: waited for here, so that the servers and
+    # the throughput below run alone on the card
+    slots_out, _ = slots.communicate(timeout=600)
+    assert slots.returncode == 0, slots_out[-3000:]
+    sw = json.loads(slots_out.strip().splitlines()[-1])
+    assert sw["yolo_launches"] == {"decode_heatmaps": 1, "head_score": 0,
+                                   "nms_sweep": 1}, sw["yolo_launches"]
+    assert sw["bottomup_launches"] == dict.fromkeys(KERNELS, 0), \
+        sw["bottomup_launches"]
+    assert sw["yolo"]["identical"] and sw["bottomup"]["identical"], sw
+    figures["slots_worker_wall_s"] = sw["wall_s"]
+    log(f"phase X: YOLOv5m f32 artifact at B=2 (exported in "
+        f"{sw['yolo_export_s']:.1f} s) equal to its live pipeline, "
+        f"{sw['yolo_persons']} persons, launches a batch "
+        f"{sw['yolo_launches']}; bottom-up f32 artifact at B=2 (exported "
+        f"in {sw['bottomup_export_s']:.1f} s) equal to its live pipeline, "
+        f"{sw['bottomup_persons']} persons, no launch (subprocess wall "
+        f"{sw['wall_s']:.1f} s)")
+
+    # 4. the server on the artifact, beside the live server
+    ready = {}
+    for name, args in (
+            ("live", ["--detector", "efficientdet_lite4"]),
+            ("artifact", ["--artifact-dir", art])):
+        port = free_port()
+        t0 = time.perf_counter()
+        with server_process(repo, [*args, "--port", str(port), "--grpc-port",
+                                   "0", "--prewarm"]) as lines:
+            ready[name] = time.perf_counter() - t0
+            health = http_json(port, "GET", "/health")
+            assert health["prewarmed"] is True, health
+            assert health["weights"] == {
+                "detector": "synthetic-certified",
+                "pose": "synthetic-certified"}, health
+            if name == "artifact":
+                assert any("WARNING: artifact carries no real-weight slot"
+                           in ln for ln in lines), lines
+                heights = [150 + i for i in range(48)]
+                m0 = http_json(port, "GET", "/metrics")
+                answers, wall = post_load(port, scene_bytes, heights, thres,
+                                          16)
+                m1 = http_json(port, "GET", "/metrics")
+                d_all = []
+                for i, a in enumerate(answers):
+                    assert a["code"] == "success", (a, "".join(lines[-80:]))
+                    d_all += check_answer(a["body_proportion_lengths_(cm)"],
+                                          golden, i % 3, heights[i],
+                                          f"artifact server request {i}")
+                mean, mx = check_mean(d_all, "artifact server load")
+                load = load_summary(m0, m1, wall, 48)
+                assert m1["failures_total"] == m0["failures_total"], m1
+                assert set(m1["stages"]) >= {"host_prepare",
+                                             "device_compute_readback"}
+    figures["server_ready_s"] = ready
+    log(f"phase X: serve.server --prewarm start to ready: artifact "
+        f"{ready['artifact']:.1f} s, live {ready['live']:.1f} s; the "
+        f"artifact server's /health weights {health['weights']}; 48 "
+        f"requests from 16 clients against the goldens x height/175: mean "
+        f"|dcm| {mean:.3f}, max {mx:.3f}; {json.dumps(load)}")
+
+    # 5. imgs/s at B = 16, the artifact restored here, in turns with live
+    apipe = ArtifactPipeline(art, device="cuda")
+    rates = {"live": [], "artifact": []}
+    with counted:
+        for name in ("live", "artifact", "artifact", "live") * 2:
+            rates[name].append(imgs_per_s(
+                lite4_pipe if name == "live" else apipe, batch16, height,
+                thres, iters=16))
+    figures["imgs_per_s"] = rates
+    log(f"phase X: infer_serving B=16 imgs/s in turns: {json.dumps(rates)}")
+    del apipe
+
+    # 6. the compile cache: the first process built into kcache with nvcc,
+    # a second one finds the library there and runs none
+    first, _ = cache1.communicate(timeout=300)
+    assert cache1.returncode == 0, first[-3000:]
+    built = json.loads(first.strip().splitlines()[-1])
+    proc = subprocess.run(
+        [sys.executable, me, "--repo", repo, "--cache-worker", kcache,
+         "--forbid-nvcc"], cwd=repo, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    hit = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert hit["path"] == built["path"] and \
+        os.path.dirname(hit["path"]) == kcache, (built, hit)
+    figures["kernel_cache_s"] = dict(build=built["seconds"],
+                                     hit=hit["seconds"])
+    log(f"phase X: compile_cache.enable(dir): the first process built the "
+        f"kernels into it in {built['seconds']:.1f} s, a second found the "
+        f"library there without nvcc in {hit['seconds']:.3f} s")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+    total = dict(counted.total)
+    for counts in (w["launches16"], w["launches20"], w["launches_more"],
+                   sw["yolo_launches"], sw["bottomup_launches"]):
+        for name, n in counts.items():
+            total[name] += n
+    figures["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase X figures: {json.dumps(figures)}")
+    log(f"phase X card: {card_line()}")
+    log(f"phase X: {figures['phase_s']:.1f} s, launches {total}")
+    return total
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -3060,10 +3526,18 @@ def main() -> int:
                     help="with --time-kernels: only the cases named so")
     ap.add_argument("--repo", default=REPO,
                     help="checkout whose port package is built and run")
-    ap.add_argument("--phases", default="ABCYDUET",
+    ap.add_argument("--phases", default=ALL_PHASES,
                     help="the phases after 3 to run (all by default); a "
                          "subset ends after the kernels line and the "
                          "card's, without the result line")
+    # phase X's own subprocesses
+    ap.add_argument("--artifact-worker", nargs=2, metavar=("DIR", "OUT"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--cache-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--slots-worker", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--forbid-nvcc", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3072,6 +3546,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.repo))
+    if args.artifact_worker:
+        return artifact_worker(*args.artifact_worker)
+    if args.cache_worker:
+        return cache_worker(args.cache_worker, args.forbid_nvcc)
+    if args.slots_worker:
+        return slots_worker()
     from human_body_proportion_estimation_tpu_torch.ops import build
     from human_body_proportion_estimation_tpu_torch.ops import kernels as k
     from human_body_proportion_estimation_tpu_torch.pipeline.host import (
@@ -3115,12 +3595,14 @@ def main() -> int:
             "U": lambda: run_bottom_up(k, dev, repo),
             "E": lambda: run_evaluate(k, pipe, repo),
             "T": lambda: run_training(k, dev, repo),
+            "X": lambda: run_artifact(k, pipe, repo),
         }
         # the kernels line counts the launches of every path driven: the
         # main path (phase 3), the serving edge (A), the registry and wire
         # protocols (C), the YOLO slot (Y), the other slots (D), bottom-up
-        # pose (U: none), the evaluate CLI's pipeline (E) and the certify
-        # CLIs of training (T), each counted from 0 just before it
+        # pose (U: none), the evaluate CLI's pipeline (E), the certify
+        # CLIs of training (T) and the artifact's batches (X), each counted
+        # from 0 just before it
         for name, run in phases.items():
             if name in args.phases:
                 counts = run() or {}
@@ -3151,7 +3633,7 @@ def main() -> int:
     ]}
     print(json.dumps(kernels_line), flush=True)
     print(card_line(), flush=True)
-    if args.kernels_only or set("ABCYDUET") - set(args.phases):
+    if args.kernels_only or set(ALL_PHASES) - set(args.phases):
         return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import argparse
 
+from human_body_proportion_estimation_tpu_torch.utils import compile_cache
+
 # 80 COCO class names (YOLO ordering; public dataset metadata)
 COCO_CLASSES = (
     "person bicycle car motorcycle airplane bus train truck boat "
@@ -28,10 +30,19 @@ COCO_CLASSES = (
 ).split()
 
 
+class _RuntimeParser(argparse.ArgumentParser):
+    """Applies `--compile-cache-dir` / `--no-compile-cache` once the flags
+    are parsed (`utils/compile_cache.apply_flags`), as the JAX package's
+    parser turns on its compilation cache there."""
+
+    def parse_args(self, *a, **kw):  # type: ignore[override]
+        args = super().parse_args(*a, **kw)
+        compile_cache.apply_flags(args)
+        return args
+
+
 def build_parser(description: str) -> argparse.ArgumentParser:
-    # the JAX package's parser also turns on its XLA compilation cache
-    # here; the port has no program cache, so that step is left out
-    p = argparse.ArgumentParser(description=description)
+    p = _RuntimeParser(description=description)
     p.add_argument("-i", "--input_path", required=True,
                    help="image file, image directory, or video file")
     p.add_argument("-m", "--media_type", default="image",
@@ -61,10 +72,5 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    choices=("efficientdet_lite4", "efficientdet_lite0"))
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--debug", action="store_true", default=True)
-    p.add_argument("--compile-cache-dir", default="",
-                   help="accepted for the JAX package's command lines; "
-                        "the port has no program cache (its kernels' "
-                        "build cache persists anyway)")
-    p.add_argument("--no-compile-cache", action="store_true",
-                   help="accepted and ignored, as --compile-cache-dir")
+    compile_cache.add_flags(p)
     return p

@@ -28,8 +28,8 @@ with code 2: `--detector ssd` (ROADMAP.md item 10) and a bare
 `--emit-compact` (JAX writes the reference package's committed
 checkpoint then: give a path). The secondary real-SSD sweep is not run
 (item 10); the report says so under `served_ssd`. `--compile-cache-dir`
-and `--no-compile-cache` are accepted and do nothing (the program cache is
-item 16's `utils/compile_cache`).
+and `--no-compile-cache` say where the CUDA kernels are built and found
+(`utils/compile_cache`).
 
 Exit status is non-zero when a gate fails (detection and segment
 coverage, mean / p95 served-cm error vs analytic truth).
@@ -44,6 +44,8 @@ import threading
 import time
 
 import numpy as np
+
+from human_body_proportion_estimation_tpu_torch.utils import compile_cache
 
 
 # --------------------------------------------------------------------- #
@@ -314,11 +316,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--smoke", action="store_true",
                         help="wiring check: reduced shapes, tiny models, "
                              "marker scenes (on the CPU with --cpu)")
-    parser.add_argument("--compile-cache-dir", default="",
-                        help="accepted and ignored: the program cache is "
-                             "ROADMAP.md item 16 (utils/compile_cache)")
-    parser.add_argument("--no-compile-cache", action="store_true",
-                        help="accepted and ignored, as --compile-cache-dir")
+    compile_cache.add_flags(parser)
     parser.add_argument(
         "--emit-compact", nargs="?", const="default", default="",
         metavar="PATH",
@@ -384,6 +382,8 @@ def main(argv=None):
     check_not_ported(parser, args)
 
     import torch
+
+    compile_cache.apply_flags(args)
 
     from human_body_proportion_estimation_tpu_torch.cli.evaluate import (
         run_eval,

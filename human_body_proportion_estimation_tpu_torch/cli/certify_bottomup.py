@@ -20,8 +20,9 @@ of the JAX package's `cli/certify_bottomup.py`, on the GPU).
 The flags are the JAX CLI's, plus `--cpu` (f32 on the CPU; bf16 on the
 GPU by default). `--smoke` shrinks shapes and budgets as in JAX; a bare
 `--emit-compact` exits 2 (JAX writes the reference package's checkpoint
-then: give a path); `--compile-cache-dir` / `--no-compile-cache` are
-accepted and do nothing (ROADMAP.md item 16). The bottom-up path launches
+then: give a path); `--compile-cache-dir` / `--no-compile-cache` say
+where the native batcher core is built and found (`utils/compile_cache`).
+The bottom-up path launches
 none of the port's CUDA kernels, as JAX's reaches no Pallas kernel.
 
 Exit status is non-zero when a gate fails (person coverage, segment
@@ -37,6 +38,8 @@ import threading
 import time
 
 import numpy as np
+
+from human_body_proportion_estimation_tpu_torch.utils import compile_cache
 
 
 def bottomup_direct_sweep(pipeline, scenes) -> dict:
@@ -223,11 +226,7 @@ def build_parser() -> argparse.ArgumentParser:
              "to PATH; a bare --emit-compact exits 2 (JAX overwrites the "
              "reference package's checkpoint there)",
     )
-    parser.add_argument("--compile-cache-dir", default="",
-                        help="accepted and ignored: the program cache is "
-                             "ROADMAP.md item 16 (utils/compile_cache)")
-    parser.add_argument("--no-compile-cache", action="store_true",
-                        help="accepted and ignored, as --compile-cache-dir")
+    compile_cache.add_flags(parser)
     parser.add_argument("--cpu", action="store_true",
                         help="train and serve on the CPU in f32 (default: "
                              "the GPU, bf16)")
@@ -243,6 +242,8 @@ def main(argv=None):
                      "checkpoint")
 
     import torch
+
+    compile_cache.apply_flags(args)
 
     from human_body_proportion_estimation_tpu_torch.cli.certify import (
         device_and_dtype,

@@ -10,8 +10,8 @@ The reference has no evaluation entry point; its accuracy claim is the
 upstream zoos' published COCO numbers (SURVEY §6). The flags are the JAX
 CLI's. `--detector` defaults to `ssd_mobilenet` as there, which exits
 with code 2 until ROADMAP.md item 10 ports it, as `--checkpoint-dir` does
-until item 17; `--compile-cache-dir` and `--no-compile-cache` are
-accepted and ignored (the port has no program cache).
+until item 17; `--compile-cache-dir` and `--no-compile-cache` say where
+the CUDA kernels are built and found (`utils/compile_cache`).
 
 Caveat (by design, shared with the reference): the fused pipeline keeps
 at most `max_persons` (3) slots an image, the reference's top-3 ensemble
@@ -28,6 +28,8 @@ import os
 from collections import defaultdict
 
 import numpy as np
+
+from human_body_proportion_estimation_tpu_torch.utils import compile_cache
 
 
 def load_coco(path: str):
@@ -165,11 +167,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--limit", type=int, default=0,
                         help="evaluate only the first N images (0 = all)")
     parser.add_argument("--batch-size", type=int, default=8)
-    parser.add_argument("--compile-cache-dir", default="",
-                        help="accepted and ignored: the port has no program "
-                             "cache")
-    parser.add_argument("--no-compile-cache", action="store_true",
-                        help="accepted and ignored, as --compile-cache-dir")
+    compile_cache.add_flags(parser)
     return parser
 
 
@@ -179,6 +177,7 @@ def main(argv=None):
     from human_body_proportion_estimation_tpu_torch.cli.common import (
         build_pipeline,
     )
+    compile_cache.apply_flags(args)
 
     pipe = build_pipeline(args)
     result = {"detector": args.detector}

@@ -38,7 +38,6 @@ Traps handled here:
 from __future__ import annotations
 
 import dataclasses
-import threading
 from typing import List, Optional, Tuple
 
 import torch
@@ -181,10 +180,6 @@ class HeadNet(nn.Module):
         return self.predict_dw(x)
 
 
-# guards `EfficientDet._class_predict_cache` (see `_class_predict_params`)
-_CLASS_PREDICT_LOCK = threading.Lock()
-
-
 class EfficientDet(nn.Module):
     """[B, H, W, 3] uint8/float image -> (best_logit [B, N],
     person_logit [B, N], box_regs [B, N, 4])."""
@@ -209,7 +204,6 @@ class EfficientDet(nn.Module):
         self.class_net = HeadNet(na * cfg.num_classes, cfg.head_repeats,
                                  fpn, 5)
         self.box_net = HeadNet(na * 4, cfg.head_repeats, fpn, 5)
-        self._class_predict_cache = (None, None, None)
         self.eval()     # flax's train=False default (layers.batch_norm)
 
     def forward(self, images: torch.Tensor, all_classes: bool = False
@@ -258,21 +252,16 @@ class EfficientDet(nn.Module):
 
     def _class_predict_params(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The class head's shared predict conv as the head-score kernel
-        takes it: weight [A*C, F] bf16 and bias f32. Made once and kept
-        until the parameters change, so the kernel wrapper's cache of
-        packed weights sees the same tensors on every forward, from every
-        thread (the serving edge runs two forwards at once)."""
+        takes it: its own weight, viewed as [A*C, F], and bias. Views of
+        the parameters keep their addresses and version counters, so the
+        kernel's cache of packed weights (keyed on both) packs once for
+        every forward and every thread, and again after an in-place
+        update; an exported program (`pipeline/export.py`) passes its own
+        persistent copies the same way. Casting here would hand the
+        kernel a new tensor, and a new packing, on every call."""
         conv = self.class_net.predict_pw
-        w, bias = conv.weight, conv.bias
-        key = (w.data_ptr(), w._version, bias.data_ptr(), bias._version)
-        with _CLASS_PREDICT_LOCK:
-            if self._class_predict_cache[0] != key:
-                self._class_predict_cache = (
-                    key,
-                    w.detach().reshape(w.shape[0], -1).to(torch.bfloat16),
-                    bias.detach().float(),
-                )
-            return self._class_predict_cache[1:]
+        w = conv.weight.detach()
+        return w.reshape(w.shape[0], -1), conv.bias.detach()
 
 
 def person_slots(

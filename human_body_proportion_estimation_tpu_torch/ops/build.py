@@ -3,11 +3,12 @@
 Each source is compiled by its own `nvcc` process, all started together,
 into an object for `sm_90a` (headers shared between them are
 `csrc/*.cuh`); the objects are linked into one shared library with a plain
-C interface, loaded with `ctypes`. The build goes into
-`build/` beside this package (listed in `.gitignore`), under a name that
-hashes the sources and flags, so an edited source is never served from a
-stale library. Nothing here runs at import time: the first kernel launch
-calls `load_library()`.
+C interface, loaded with `ctypes`. The build goes into `BUILD_DIR`:
+`build/` beside this package (listed in `.gitignore`) unless
+`utils/compile_cache` points it elsewhere, under a name that hashes the
+sources and flags, so an edited source is never served from a stale
+library. Nothing here runs at import time: the first kernel launch calls
+`load_library()`.
 """
 
 from __future__ import annotations
@@ -24,7 +25,10 @@ from typing import List
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(PKG_DIR, "build")
+DEFAULT_BUILD_DIR = os.path.join(PKG_DIR, "build")
+# where the kernel library and the native serving core are built and found
+# (`utils/compile_cache.enable` repoints it; read at each build)
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -10,11 +10,21 @@ Port of the JAX package's `ops/pallas_kernels.py`:
                                             head_score is its one-level form)
   nms_sweep_pallas_batched :151 (+ :190)    nms_sweep        csrc/nms_sweep.cu
 
-Dispatch is by the device of the input and nothing else: a CPU tensor goes
-to the plain version (the CPU tests), a CUDA tensor launches the kernel or
-raises. There is no fallback from a failed launch to the plain version.
-Every launch adds one to `LAUNCHES[name]`, so a run can show that it went
-through the kernels (`reset_launch_counts` / `launch_counts`).
+Each kernel is a `torch.library` custom op in the `hbpe` namespace
+(`torch.ops.hbpe.decode_heatmaps`, `.head_score_levels`, `.nms_sweep`), so
+that `torch.export` captures a call as one node of the graph and an
+exported program (`pipeline/export.py`) runs the same kernels as the live
+path. Dispatch is by the device of the input and nothing else: the op's
+CPU implementation is the plain version (the CPU tests), its CUDA
+implementation launches the kernel or raises, and its fake implementation
+gives the output shapes to a trace. There is no fallback from a failed
+launch to the plain version. The public wrappers below keep the shape
+checks; the dtype, contiguity and alignment checks and the launch counts
+live in the CUDA implementations, which see real tensors only. Every
+launch adds one to `LAUNCHES[name]`, so a run can show that it went
+through the kernels (`reset_launch_counts` / `launch_counts`). Importing
+this module registers the ops: `torch.export.load` of a program that
+calls them needs that first.
 
 The serving edge runs two batches at once on two threads, so the first
 load of the kernel library, the cache of packed head weights and the
@@ -26,9 +36,10 @@ from __future__ import annotations
 import ctypes
 import threading
 from collections import OrderedDict
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
+from torch.library import custom_op
 
 from human_body_proportion_estimation_tpu_torch.ops import (
     heatmap as hm_ops,
@@ -113,21 +124,41 @@ def decode_heatmaps_plain(
     return tuple(hm_ops.decode_heatmaps(heatmaps))
 
 
-def decode_heatmaps(
+@custom_op("hbpe::decode_heatmaps", mutates_args=(), device_types="cpu")
+def _decode_heatmaps_op(
     heatmaps: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[N, K, H, W] f32 -> (keypoints [N, K, 2] (x, y), scores [N, K])."""
-    if _on_cpu(heatmaps):
-        return decode_heatmaps_plain(heatmaps)
+    return decode_heatmaps_plain(heatmaps)
+
+
+@_decode_heatmaps_op.register_kernel("cuda")
+def _decode_heatmaps_cuda(heatmaps):
     _check(heatmaps, "heatmaps", torch.float32, 4)
     n, k, h, w = heatmaps.shape
-    # one allocation for both outputs: x, y of every map, then the scores
-    out = torch.empty((3, n, k), dtype=torch.float32, device=heatmaps.device)
-    kp, scores = out[:2].view(n, k, 2), out[2]
+    kp = torch.empty((n, k, 2), dtype=torch.float32, device=heatmaps.device)
+    scores = torch.empty((n, k), dtype=torch.float32, device=heatmaps.device)
     _launch("decode_heatmaps", _lib().hbpe_decode_heatmaps,
             heatmaps.data_ptr(), kp.data_ptr(), scores.data_ptr(),
             n * k, h * w, w)
     return kp, scores
+
+
+@_decode_heatmaps_op.register_fake
+def _decode_heatmaps_fake(heatmaps):
+    n, k = heatmaps.shape[:2]
+    return (heatmaps.new_empty((n, k, 2), dtype=torch.float32),
+            heatmaps.new_empty((n, k), dtype=torch.float32))
+
+
+def decode_heatmaps(
+    heatmaps: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[N, K, H, W] f32 -> (keypoints [N, K, 2] (x, y), scores [N, K])."""
+    _on_cpu(heatmaps)
+    if heatmaps.dim() != 4:
+        raise ValueError(
+            f"heatmaps: expected 4 dims, got {tuple(heatmaps.shape)}")
+    return tuple(_decode_heatmaps_op(heatmaps))
 
 
 # --------------------------------------------------------------------- #
@@ -254,6 +285,58 @@ def _packed_head_weights(weight, bias, a, c, person0):
     return hit[2], hit[3]
 
 
+@custom_op("hbpe::head_score_levels", mutates_args=(), device_types="cpu")
+def _head_score_levels_op(
+    zs: List[torch.Tensor],
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    anchors_per_cell: int,
+    num_classes: int,
+    person_class0: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    return head_score_levels_plain(zs, weight, bias, anchors_per_cell,
+                                   num_classes, person_class0)
+
+
+@_head_score_levels_op.register_kernel("cuda")
+def _head_score_levels_cuda(zs, weight, bias, anchors_per_cell,
+                            num_classes, person_class0):
+    a = anchors_per_cell
+    for li, z in enumerate(zs):
+        _check(z, f"z[{li}]", torch.bfloat16, 4)
+    for t, name in ((weight, "weight"), (bias, "bias")):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{name}: expected float32 or bfloat16, got "
+                            f"{t.dtype}")
+    slabs, bias_p = _packed_head_weights(weight, bias, a, num_classes,
+                                         person_class0)
+    b, f = zs[0].shape[0], zs[0].shape[3]
+    cells = [z.shape[1] * z.shape[2] for z in zs]
+    nl = len(zs)
+    col0, n = [], 0
+    for n_cells in cells:
+        col0.append(n)
+        n += a * n_cells
+    best = torch.empty((b, n), dtype=torch.float32, device=weight.device)
+    person = torch.empty((b, n), dtype=torch.float32, device=weight.device)
+    ints = ctypes.c_int * nl
+    _launch("head_score", _lib().hbpe_head_score_levels,
+            (ctypes.c_void_p * nl)(*[z.data_ptr() for z in zs]),
+            ints(*[b * n_cells for n_cells in cells]), ints(*cells),
+            ints(*col0), nl, slabs.data_ptr(), bias_p.data_ptr(),
+            best.data_ptr(), person.data_ptr(), n, f, a)
+    return best, person
+
+
+@_head_score_levels_op.register_fake
+def _head_score_levels_fake(zs, weight, bias, anchors_per_cell,
+                            num_classes, person_class0):
+    n = sum(z.shape[1] * z.shape[2] for z in zs) * anchors_per_cell
+    shape = (zs[0].shape[0], n)
+    return (zs[0].new_empty(shape, dtype=torch.float32),
+            zs[0].new_empty(shape, dtype=torch.float32))
+
+
 def head_score_levels(
     zs: Sequence[torch.Tensor],
     weight: torch.Tensor,
@@ -268,8 +351,11 @@ def head_score_levels(
     zs: up to 8 head-feature tensors [B, H_l, W_l, F] (NHWC, as the JAX
     function takes them), weight [A*C, F] (the 1x1 predict conv's OIHW
     weight without its unit spatial dims), bias [A*C]. F must be a multiple
-    of 16 and <= 256, C <= 96. On CUDA, zs and weight must already be bf16
-    and bias f32, all contiguous and 16-byte aligned. Returns
+    of 16 and <= 256, C <= 96. On CUDA, zs must already be bf16,
+    contiguous and 16-byte aligned; weight and bias are f32 or bf16 (the
+    kernel takes them packed, `pack_head_weights`, in bf16 and f32: the
+    packing is cached by the tensors' addresses and versions, so a model
+    that passes its own parameters packs once). Returns
     (best_logit, person_logit), each [B, N] f32 with the levels
     concatenated in order (N = sum_l H_l * W_l * A): the kernel writes
     every level straight into these buffers.
@@ -278,13 +364,11 @@ def head_score_levels(
     if not 1 <= len(zs) <= MAX_LEVELS:
         raise ValueError(f"expected 1..{MAX_LEVELS} levels, got {len(zs)}")
     b, f = (zs[0].shape[0], zs[0].shape[3]) if zs[0].dim() == 4 else (0, 0)
-    cells = []
     for z in zs:
         if z.dim() != 4 or z.shape[0] != b or z.shape[3] != f:
             raise ValueError(
                 "every level must be [B, H, W, F] with one B and one F: "
                 f"{[tuple(t.shape) for t in zs]}")
-        cells.append(z.shape[1] * z.shape[2])
     if f % 16 or not 0 < f <= MAX_FEATURES:
         raise ValueError(
             f"F = {f}: must be a multiple of 16 and <= {MAX_FEATURES}")
@@ -297,28 +381,9 @@ def head_score_levels(
             f"weight {tuple(weight.shape)} / bias {tuple(bias.shape)} do not "
             f"match {a} anchors x {c} classes over {f} features"
         )
-    if _on_cpu(*zs, weight, bias):
-        return head_score_levels_plain(zs, weight, bias, a, c, person_class0)
-    for li, z in enumerate(zs):
-        _check(z, f"z[{li}]", torch.bfloat16, 4)
-    _check(weight, "weight", torch.bfloat16, 2)
-    _check(bias, "bias", torch.float32, 1)
-    slabs, bias_p = _packed_head_weights(weight, bias, a, c, person_class0)
-
-    nl = len(zs)
-    col0, n = [], 0
-    for n_cells in cells:
-        col0.append(n)
-        n += a * n_cells
-    best, person = torch.empty((2, b, n), dtype=torch.float32,
-                               device=weight.device)
-    ints = ctypes.c_int * nl
-    _launch("head_score", _lib().hbpe_head_score_levels,
-            (ctypes.c_void_p * nl)(*[z.data_ptr() for z in zs]),
-            ints(*[b * n_cells for n_cells in cells]), ints(*cells),
-            ints(*col0), nl, slabs.data_ptr(), bias_p.data_ptr(),
-            best.data_ptr(), person.data_ptr(), n, f, a)
-    return best, person
+    _on_cpu(*zs, weight, bias)
+    return tuple(_head_score_levels_op(list(zs), weight, bias, a, c,
+                                       person_class0))
 
 
 def head_score(
@@ -352,6 +417,29 @@ def nms_sweep_plain(
 MAX_NMS_K = 512     # candidates an image the sweep kernel takes
 
 
+@custom_op("hbpe::nms_sweep", mutates_args=(), device_types="cpu")
+def _nms_sweep_op(boxes: torch.Tensor, scores: torch.Tensor,
+                  iou_threshold: float, plus1: bool) -> torch.Tensor:
+    return nms_sweep_plain(boxes, scores, iou_threshold, plus1)
+
+
+@_nms_sweep_op.register_kernel("cuda")
+def _nms_sweep_cuda(boxes, scores, iou_threshold, plus1):
+    _check(boxes, "boxes", torch.float32, 3)
+    _check(scores, "scores", torch.float32, 2)
+    b, k, _ = boxes.shape
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    _launch("nms_sweep", _lib().hbpe_nms_sweep,
+            boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
+            float(iou_threshold), int(bool(plus1)))
+    return keep
+
+
+@_nms_sweep_op.register_fake
+def _nms_sweep_fake(boxes, scores, iou_threshold, plus1):
+    return scores.new_empty(scores.shape, dtype=torch.bool)
+
+
 def nms_sweep(
     boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
     plus1: bool = False,
@@ -363,21 +451,15 @@ def nms_sweep(
     the plain version. `plus1` takes the legacy +1-pixel IoU
     (`ops/nms.box_iou_plus1`) in place of `ops/boxes.box_iou`; both count
     as `nms_sweep` launches."""
-    if _on_cpu(boxes, scores):
-        return nms_sweep_plain(boxes, scores, iou_threshold, plus1)
-    _check(boxes, "boxes", torch.float32, 3)
-    _check(scores, "scores", torch.float32, 2)
-    b, k, _ = boxes.shape
-    if boxes.shape[2] != 4 or scores.shape != (b, k) or k > MAX_NMS_K:
+    _on_cpu(boxes, scores)
+    if (boxes.dim() != 3 or boxes.shape[2] != 4 or scores.dim() != 2
+            or scores.shape != boxes.shape[:2]
+            or boxes.shape[1] > MAX_NMS_K):
         raise ValueError(
             f"boxes {tuple(boxes.shape)} / scores {tuple(scores.shape)}: "
             f"expected [B, K, 4] / [B, K] with K <= {MAX_NMS_K}"
         )
-    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
-    _launch("nms_sweep", _lib().hbpe_nms_sweep,
-            boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), b, k,
-            float(iou_threshold), int(bool(plus1)))
-    return keep
+    return _nms_sweep_op(boxes, scores, float(iou_threshold), bool(plus1))
 
 
 def nms_launch_shape() -> Tuple[int, int]:

@@ -2,8 +2,11 @@
 `pipeline/backends.py`: `EfficientDetBackend` on its score-kernel path, and
 `YoloBackend`).
 
-A backend maps a batch of det-input images to padded person slots
-(boxes_px yxyx in det-input space, scores, valid), `max_persons` per image.
+A backend is an `nn.Module` that maps a batch of det-input images to
+padded person slots (boxes_px yxyx in det-input space, scores, valid),
+`max_persons` per image. Its model is a submodule and its constants
+(anchors) are buffers, so a `pipeline.full.ServingProgram` over it exports
+them with the program (`pipeline/export.py`).
 """
 
 from __future__ import annotations
@@ -34,21 +37,24 @@ from human_body_proportion_estimation_tpu_torch.utils.config import (
 )
 
 
-class EfficientDetBackend:
+class EfficientDetBackend(torch.nn.Module):
     """EfficientDet-Lite slot: fused head-score kernel + person-only NMS."""
 
     def __init__(self, detector: EfficientDet, config: PipelineConfig,
                  device: torch.device | str):
+        super().__init__()
         self.detector = detector
         self.config = config
         det = config.detector
         self.image_hw = (det.input_height, det.input_width)
-        # anchors depend only on the input size: build them once
-        self.anchors = torch.from_numpy(generate_anchors(
-            detector.config.anchors, *self.image_hw)).to(device)
+        # anchors depend only on the input size: build them once (a buffer
+        # of the module, left out of its state_dict)
+        self.register_buffer("anchors", torch.from_numpy(generate_anchors(
+            detector.config.anchors, *self.image_hw)).to(device),
+            persistent=False)
 
-    def __call__(self, images_f32: torch.Tensor,
-                 det_threshold: torch.Tensor):
+    def forward(self, images_f32: torch.Tensor,
+                det_threshold: torch.Tensor):
         det = self.config.detector
         best_logit, person_logit, box_regs = self.detector(images_f32)
         return person_slots(
@@ -60,7 +66,7 @@ class EfficientDetBackend:
         )
 
 
-class YoloBackend:
+class YoloBackend(torch.nn.Module):
     """YOLOv5 slot: letterbox 640 gray-128 (reference
     `obj_det_yolov5_trtserver.py:30-37`) -> /255 -> forward -> anchor
     decode with the class reduction on the logits -> official NMS conf 0.4
@@ -74,12 +80,13 @@ class YoloBackend:
 
     def __init__(self, model: YoloV5, config: PipelineConfig,
                  input_size: int = 640):
+        super().__init__()
         self.model = model
         self.config = config
         self.input_size = input_size  # 640, reference :30-37
 
-    def __call__(self, images_f32: torch.Tensor,
-                 det_threshold: torch.Tensor):
+    def forward(self, images_f32: torch.Tensor,
+                det_threshold: torch.Tensor):
         det = self.config.detector
         s = self.input_size
         boxed = img_ops.letterbox(images_f32, s, s)

@@ -19,6 +19,10 @@ are `record_function` ranges (`hbpe.bottomup_model`,
 It launches none of the port's CUDA kernels: the JAX bottom-up program
 reaches no Pallas kernel, and its max-pool, top-k, grouping loop and
 upsample are plain PyTorch here as they are plain XLA there.
+
+`BottomUpProgram` is the serving forward as an `nn.Module`, what
+`torch.export` takes for the bottom-up artifact (`pipeline/export.py`):
+(images, heights, orig_hw) -> packed, the AE decode inside.
 """
 
 from __future__ import annotations
@@ -44,6 +48,9 @@ from human_body_proportion_estimation_tpu_torch.ops import (
     ae_grouping as ae,
     heatmap as hm_ops,
     proportions as prop_ops,
+)
+from human_body_proportion_estimation_tpu_torch.pipeline.full import (
+    pack_serving,
 )
 from human_body_proportion_estimation_tpu_torch.pipeline.host import (
     _pad_batch,
@@ -194,6 +201,10 @@ class BottomUpPipeline:
         person_heights: torch.Tensor,  # [B, P] cm
         orig_hw: torch.Tensor,         # [B, 2]
     ) -> BottomUpOutputs:
+        return self.outputs(images, person_heights, orig_hw)
+
+    def outputs(self, images, person_heights, orig_hw) -> BottomUpOutputs:
+        """`forward` without `torch.inference_mode` (`BottomUpProgram`)."""
         with record_function("hbpe.bottomup_model"):
             heat, tags = self.aggregate(images)
         with record_function("hbpe.bottomup_decode"):
@@ -254,8 +265,8 @@ class BottomUpPipeline:
         single-readback serving layout of the top-down pipeline, so the
         HTTP / gRPC edge and its batchers serve both alike."""
         out = self.forward(images, person_heights, orig_hw)
-        return torch.cat([out.person_valid.float()[..., None], out.lengths_cm,
-                          out.seg_visible.float()], dim=-1)
+        return pack_serving(out.person_valid, out.lengths_cm,
+                            out.seg_visible)
 
     def _stage(self, name: str):
         if self.stages is None:
@@ -307,6 +318,23 @@ class BottomUpPipeline:
             heights[i, :] = float(hi if np.isscalar(hi) else hi[i])
         out = self.forward(*self._upload((batch, heights, orig_hw)))
         return BottomUpOutputs(*(x.cpu().numpy() for x in out))
+
+
+class BottomUpProgram(torch.nn.Module):
+    """`BottomUpPipeline.forward_serving` as a module: (images u8
+    [B, 512, 512, 3], heights [B, P], orig_hw [B, 2]) -> packed
+    [B, P, 23]. Its submodule is the pipeline's HigherHRNet (shared, not
+    copied); the decode settings are the pipeline's."""
+
+    def __init__(self, pipeline: BottomUpPipeline):
+        super().__init__()
+        self.model = pipeline.model
+        self._pipeline = (pipeline,)   # a tuple: not registered as a module
+
+    def forward(self, images, person_heights, orig_hw):
+        out = self._pipeline[0].outputs(images, person_heights, orig_hw)
+        return pack_serving(out.person_valid, out.lengths_cm,
+                            out.seg_visible)
 
 
 def build_default(device: str | torch.device = "cuda",

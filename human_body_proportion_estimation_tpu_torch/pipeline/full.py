@@ -11,6 +11,12 @@ and pixel heights are de-normalized to each image's original size
 (`orig_hw`). The four stages are `record_function` ranges
 (`hbpe.detector`, `hbpe.crop`, `hbpe.pose`, `hbpe.decode_cm`) that a
 `torch.profiler` run reads (`chip_smoke.py --profile`).
+
+`ServingProgram` is the serving forward as an `nn.Module` over the
+backend's and the pose model's modules: what `torch.export` takes to make
+the deployable artifact (`pipeline/export.py`). An export keeps neither
+the `record_function` ranges nor `torch.inference_mode`: they are not
+operations of the graph.
 """
 
 from __future__ import annotations
@@ -71,17 +77,34 @@ def select_persons(
     return boxes, top, top > 0.0
 
 
-class FusedPipeline:
-    """The fused forward over a detector backend and a pose model."""
+def pack_serving(person_valid: torch.Tensor, lengths_cm: torch.Tensor,
+                 seg_visible: torch.Tensor) -> torch.Tensor:
+    """Everything the HTTP response needs, packed into one [B, P, 23] f32
+    tensor (valid | 11 lengths | 11 visibility): one readback."""
+    return torch.cat([person_valid.float()[..., None], lengths_cm,
+                      seg_visible.float()], dim=-1)
 
-    def __init__(self, config: PipelineConfig, detector_backend,
+
+class ServingProgram(torch.nn.Module):
+    """The fused forward as a module over a detector backend and a pose
+    model (both `nn.Module`s, registered as its submodules: their
+    parameters and buffers are its own, shared and not copied). `forward`
+    is the serving forward: (images u8 [B, H, W, 3], thresholds [B],
+    heights [B, P], orig_hw [B, 2]) -> packed [B, P, 23]."""
+
+    def __init__(self, config: PipelineConfig, backend: torch.nn.Module,
                  pose: torch.nn.Module):
+        super().__init__()
         self.config = config
-        self.detector_backend = detector_backend
+        self.backend = backend
         self.pose = pose
 
-    @torch.inference_mode()
-    def forward(
+    def forward(self, images, det_threshold, person_heights, orig_hw):
+        out = self.outputs(images, det_threshold, person_heights, orig_hw)
+        return pack_serving(out.person_valid, out.lengths_cm,
+                            out.seg_visible)
+
+    def outputs(
         self,
         images: torch.Tensor,          # [B, H, W, 3] uint8 RGB (det size)
         det_threshold: torch.Tensor,   # [B] f32
@@ -97,7 +120,7 @@ class FusedPipeline:
         images_f32 = images.float()
 
         with record_function("hbpe.detector"):
-            boxes_px, det_scores, person_valid = self.detector_backend(
+            boxes_px, det_scores, person_valid = self.backend(
                 images_f32, det_threshold)
 
         with record_function("hbpe.crop"):
@@ -150,17 +173,24 @@ class FusedPipeline:
             heatmaps=heatmaps if with_heatmaps else None,
         )
 
+
+class FusedPipeline:
+    """The fused forward over a detector backend and a pose model, run
+    under `torch.inference_mode`; `program` is its `ServingProgram`."""
+
+    def __init__(self, config: PipelineConfig, detector_backend,
+                 pose: torch.nn.Module):
+        self.config = config
+        self.program = ServingProgram(config, detector_backend, pose)
+
+    @torch.inference_mode()
+    def forward(self, images, det_threshold, person_heights, orig_hw,
+                with_heatmaps: bool = False) -> PipelineOutputs:
+        return self.program.outputs(images, det_threshold, person_heights,
+                                    orig_hw, with_heatmaps)
+
     @torch.inference_mode()
     def forward_serving(self, images, det_threshold, person_heights,
                         orig_hw) -> torch.Tensor:
-        """Everything the HTTP response needs, packed into one [B, P, 23]
-        f32 tensor (valid | 11 lengths | 11 visibility): one readback."""
-        out = self.forward(images, det_threshold, person_heights, orig_hw)
-        return torch.cat(
-            [
-                out.person_valid.float()[..., None],
-                out.lengths_cm,
-                out.seg_visible.float(),
-            ],
-            dim=-1,
-        )
+        """The packed [B, P, 23] rows (`pack_serving`)."""
+        return self.program(images, det_threshold, person_heights, orig_hw)

@@ -149,15 +149,19 @@ def prepare_batch(cfg: PipelineConfig, images_rgb, person_heights,
 
 def prewarm_serving(pipeline) -> list:
     """Run the serving forward once at every power-of-two batch bucket up
-    to `serve.max_batch`, so that the first real request at a bucket pays
-    no first-call cost (the kernel library build and load, cuDNN's choice
-    of algorithms for the new shapes, the packing of the head weights).
-    The analog of Triton marking a model READY only after load +
-    initialize (reference README.md:56-64). Returns the image counts warmed
-    and sets `pipeline.prewarmed` for /health. Works on any pipeline with
-    `config`, `infer_serving` and `prewarmed`: an `InferencePipeline` or a
-    `pipeline.bottomup.BottomUpPipeline` (which ignores the threshold)."""
-    max_batch = pipeline.config.serve.max_batch
+    to `serve.max_batch` (an artifact's one fixed batch: every count pads
+    to it), so that the first real request at a bucket pays no first-call
+    cost (the kernel library build and load, cuDNN's choice of algorithms
+    for the new shapes, the packing of the head weights). The analog of
+    Triton marking a model READY only after load + initialize (reference
+    README.md:56-64). Returns the image counts warmed and sets
+    `pipeline.prewarmed` for /health. Works on any pipeline with `config`,
+    `infer_serving` and `prewarmed`: an `InferencePipeline`, a
+    `pipeline.bottomup.BottomUpPipeline` (which ignores the threshold) or a
+    `pipeline.export.ArtifactPipeline`."""
+    art = getattr(pipeline, "artifact", None)
+    max_batch = (art.effective_batch if art is not None
+                 else pipeline.config.serve.max_batch)
     img = np.zeros((64, 48, 3), np.uint8)
     warmed = []
     n = 1

@@ -10,9 +10,10 @@ ids to payload/future pairs and runs the fused forward on each batch.
 The core's source is shared with the JAX package, whose loader rebuilds
 the tracked `native/libhbpe_serving.so` in place. The port never writes
 under `native/`: it compiles `native/serving_core.cpp` itself, with the
-flags of `native/Makefile`, into the package's gitignored `build/`, under a
-name that hashes the source and the flags (as `ops/build.py` keys the CUDA
-kernels). The build runs at the first `NativeBatcher`, not at import.
+flags of `native/Makefile`, into the package's gitignored `build/` (or where
+`utils/compile_cache` points `ops/build.BUILD_DIR`), under a name that
+hashes the source and the flags (as `ops/build.py` keys the CUDA kernels).
+The build runs at the first `NativeBatcher`, not at import.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Sequence
 
-from human_body_proportion_estimation_tpu_torch.ops.build import BUILD_DIR
+from human_body_proportion_estimation_tpu_torch.ops import build as _build
 from human_body_proportion_estimation_tpu_torch.serve import tracing
 
 SOURCE = os.path.join(
@@ -44,17 +45,21 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def library_path(build_dir: str = BUILD_DIR) -> str:
-    """Where the core built from the current source and flags lives."""
+def library_path(build_dir: str | None = None) -> str:
+    """Where the core built from the current source and flags lives (in
+    `ops/build.BUILD_DIR` by default)."""
+    build_dir = build_dir or _build.BUILD_DIR
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     with open(SOURCE, "rb") as fh:
         h.update(fh.read())
     return os.path.join(build_dir, f"libhbpe_serving_{h.hexdigest()[:16]}.so")
 
 
-def build_library(build_dir: str = BUILD_DIR) -> str:
-    """Compile the native core into `build_dir` unless a library built from
-    the same source and flags is there; returns its path."""
+def build_library(build_dir: str | None = None) -> str:
+    """Compile the native core into `build_dir` (`ops/build.BUILD_DIR` by
+    default) unless a library built from the same source and flags is
+    there; returns its path."""
+    build_dir = build_dir or _build.BUILD_DIR
     path = library_path(build_dir)
     if os.path.exists(path):
         return path

@@ -1105,7 +1105,10 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
     `higherhrnet`, the EfficientDet detector (Lite4 or Lite0) with the
     EfficientDet models, a YOLOv5 with the `yolov5*` entry of its variant;
     a bottom-up pipeline's HigherHRNet with `higherhrnet` (the other models
-    are then built as with no pipeline, as in the JAX registry).
+    are then built as with no pipeline, as in the JAX registry). An
+    artifact's pipeline (`pipeline.export.ArtifactPipeline`) has no module
+    to share: every model is built as with no pipeline, in the artifact's
+    configuration, as the JAX registry builds them beside an artifact.
 
     The configuration is the pipeline's, else the default one. `device`:
     where the runners run; the pipeline's device by default, else CUDA.
@@ -1145,7 +1148,7 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
         device = device or pipeline.device
     if isinstance(pipeline, BottomUpPipeline):
         higher, higher_weights = pipeline.model, origin["pose"]
-    elif pipeline is not None:
+    elif getattr(pipeline, "backend", None) is not None:
         if isinstance(pipeline.pose, HRNet):
             pose, pose_weights = pipeline.pose, origin["pose"]
         elif isinstance(pipeline.pose, HigherHRNetHeatmaps):

@@ -1,6 +1,7 @@
 """HTTP serving edge of the port, self-contained on the stdlib: the JAX
 package's `serve/server.py` over the port's `InferencePipeline` (or, with
-`--bottom-up`, its `BottomUpPipeline`) on the GPU.
+`--bottom-up`, its `BottomUpPipeline`; with `--artifact-dir`, an exported
+artifact's `pipeline.export.ArtifactPipeline`) on the GPU.
 
 Route/response parity with `uvicorn_server/server.py` and the JAX server
 (same status codes, JSON shapes and messages):
@@ -74,6 +75,7 @@ from human_body_proportion_estimation_tpu_torch.serve.wire import (
     serialize_bytes_tensor,
 )
 from human_body_proportion_estimation_tpu_torch.utils import (
+    compile_cache,
     logging as hbpe_logging,
 )
 from human_body_proportion_estimation_tpu_torch.utils.config import (
@@ -889,7 +891,6 @@ def create_server(app: ServingApp, host: str, port: int) -> ThreadingHTTPServer:
 # options of the JAX server that the port does not serve yet, and the
 # ROADMAP.md item that brings each
 _NOT_YET = (
-    ("artifact_dir", "--artifact-dir", "item 16 (the deployable artifact)"),
     ("data_parallel", "--data-parallel", "item 16 (multi-device serving)"),
     ("checkpoint_dir", "--checkpoint-dir", "item 17 (importers: orbax "
                                            "checkpoints)"),
@@ -920,9 +921,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint-dir", default=None,
                         help="orbax checkpoint dir with det/pose params "
                              "(not ported yet: exits)")
-    parser.add_argument("--artifact-dir", default=None,
-                        help="serve an exported artifact (not ported yet: "
-                             "exits)")
+    parser.add_argument(
+        "--artifact-dir", default=None,
+        help="serve from an exported artifact directory (torch.export "
+             "program + meta.json, see pipeline/export.py and "
+             "cli.export_artifact) instead of building models; overrides "
+             "--detector and --bottom-up")
     parser.add_argument("--data-parallel", type=int, default=0,
                         help="shard serving batches over N devices (not "
                              "ported yet: N > 1 exits)")
@@ -931,13 +935,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="run the serving forward at every batch bucket before "
              "accepting traffic; /health reports prewarmed: true",
     )
-    parser.add_argument(
-        "--compile-cache-dir", default="",
-        help="accepted for the JAX server's command lines; the port has no "
-             "program cache (its kernels' build cache persists anyway)",
-    )
-    parser.add_argument("--no-compile-cache", action="store_true",
-                        help="accepted and ignored, as --compile-cache-dir")
+    compile_cache.add_flags(parser)
     parser.add_argument("--bottom-up", action="store_true",
                         help="serve the bottom-up pipeline (HigherHRNet + "
                              "associative-embedding grouping, no detector; "
@@ -952,9 +950,10 @@ def main(argv=None):
         value = getattr(args, attr)
         if value and not (attr == "data_parallel" and value <= 1):
             parser.error(f"{flag} is not ported yet: ROADMAP.md {item}")
-    # --bottom-up never reads --detector (the JAX server returns before it
-    # does), so the default ssd_mobilenet serves it
-    if not args.bottom_up and args.detector in NOT_PORTED_DETECTORS:
+    # --bottom-up and --artifact-dir never read --detector (the JAX server
+    # returns before it does), so the default ssd_mobilenet serves them
+    if (not args.bottom_up and not args.artifact_dir
+            and args.detector in NOT_PORTED_DETECTORS):
         parser.error(f"--detector {args.detector} is not ported yet: "
                      f"ROADMAP.md {NOT_PORTED_DETECTORS[args.detector]}")
     if args.grpc_port:
@@ -971,8 +970,32 @@ def main(argv=None):
                          f"cannot start ({e}); pass --grpc-port 0 to serve "
                          "HTTP alone")
 
+    log.info("compile_cache", directory=compile_cache.apply_flags(args))
+
+    if args.artifact_dir:
+        _serve(args, build_artifact_pipeline(args.artifact_dir))
+        return
     _serve(args, build_bottomup_pipeline() if args.bottom_up
            else build_pipeline(args))
+
+
+def build_artifact_pipeline(directory: str):
+    """`--artifact-dir`: the exported program restored on the GPU
+    (`pipeline.export.ArtifactPipeline`; no model is built), with the JAX
+    server's warning when no slot carries real weights."""
+    from human_body_proportion_estimation_tpu_torch.pipeline.export import (
+        ArtifactPipeline,
+    )
+
+    pipeline = ArtifactPipeline(directory, device="cuda")
+    if "real" not in pipeline.weights_origin.values():
+        print(
+            "WARNING: artifact carries no real-weight slot "
+            f"({pipeline.weights_origin}) — outputs are garbage "
+            "(see /health 'weights')",
+            flush=True,
+        )
+    return pipeline
 
 
 def build_bottomup_pipeline():
@@ -1051,7 +1074,8 @@ def _serve(args, pipeline):
         print(f"grpc on {args.host}:{bound}", flush=True)
     log.info("http_listening", host=args.host, port=args.port,
              engine="native" if app.native else "python",
-             detector="bottom_up" if args.bottom_up else args.detector)
+             detector=("artifact" if args.artifact_dir else
+                       "bottom_up" if args.bottom_up else args.detector))
     print(f"serving on {args.host}:{args.port}", flush=True)
     try:
         server.serve_forever()

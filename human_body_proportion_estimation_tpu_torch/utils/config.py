@@ -94,3 +94,22 @@ class PipelineConfig:
     @property
     def x_expand(self) -> int:
         return self.detector.input_width // self.bbox_x_expand_divisor
+
+
+def config_from_dict(d: dict) -> PipelineConfig:
+    """Rebuild the frozen config tree from `dataclasses.asdict` output (a
+    serving artifact's `meta.json`, `pipeline/export.py`): the JAX
+    package's `config_from_dict`. Unknown keys (from a newer writer) are
+    dropped; JSON lists become the tuples the dataclasses expect."""
+    def build(cls, sub: dict):
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: tuple(v) if isinstance(v, list) else v
+                      for k, v in sub.items() if k in names})
+
+    return PipelineConfig(
+        detector=build(DetectorConfig, d.get("detector", {})),
+        pose=build(PoseConfig, d.get("pose", {})),
+        serve=build(ServeConfig, d.get("serve", {})),
+        **{k: v for k, v in d.items()
+           if k in ("bbox_x_expand_divisor", "compute_dtype", "param_dtype")},
+    )

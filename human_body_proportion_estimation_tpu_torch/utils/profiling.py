@@ -1,8 +1,13 @@
-"""Per-stage wall-time statistics for the serving edge (`/metrics`
-`stages`): the `StageTimer` of the JAX package's `utils/profiling.py`.
+"""Tracing / profiling hooks: the port of the JAX package's
+`utils/profiling.py`.
 
-The JAX module's `device_time` and `xla_trace` are not ported yet; their
-port is CUDA-event timing and the torch profiler (ROADMAP.md item 16).
+  * `StageTimer` — accumulating per-stage wall-time stats for the serving
+    edge's host-side stages (`/metrics` `stages`).
+  * `device_time` — the minimum wall time of a call over a few trials,
+    each fenced by a host readback of its result (a CUDA launch returns
+    before the work is done; reading a value back waits for it).
+  * `torch_trace` — a `torch.profiler` trace of a code region, written to
+    a directory (the JAX package's `xla_trace`).
 """
 
 from __future__ import annotations
@@ -48,3 +53,40 @@ class StageTimer:
                     "p95_ms": float(np.percentile(arr, 95) * 1e3),
                 }
             return out
+
+
+def device_time(fn, *args, readback=lambda out: out, trials: int = 3):
+    """Time a device program honestly: (min wall seconds over `trials`,
+    the last output), each trial fenced by reading the sum of
+    `readback(out)` (a tensor or an array) back to the host."""
+    import torch
+
+    best = float("inf")
+    out = None
+    for _ in range(trials):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        float(torch.as_tensor(readback(out)).sum())
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str):
+    """Capture a `torch.profiler` trace of the region (host, and the
+    GPU's kernels where CUDA is available) into `log_dir` as a Chrome /
+    Perfetto trace file: the counterpart of the JAX package's
+    `xla_trace` (`jax.profiler.start_trace`). Yields the profiler, whose
+    `key_averages()` the caller may read."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

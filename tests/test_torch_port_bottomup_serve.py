@@ -274,7 +274,7 @@ def test_bottom_up_serves_with_the_default_detector(certified, monkeypatch,
 @pytest.mark.parametrize("extra,item", [
     (["--checkpoint-dir", "x"], "item 17"),
     (["--data-parallel", "2"], "item 16"),
-    (["--artifact-dir", "x"], "item 16"),
+    (["--artifact-dir", "x", "--data-parallel", "2"], "item 16"),
 ])
 def test_bottom_up_exits_on_options_not_ported(extra, item, monkeypatch,
                                                capsys):

@@ -23,6 +23,7 @@ from human_body_proportion_estimation_tpu.cli.detect_pose import (
     run_pdet_pose as jrun,
 )
 from human_body_proportion_estimation_tpu_torch.cli.args import build_parser
+from human_body_proportion_estimation_tpu_torch.ops import build
 from human_body_proportion_estimation_tpu_torch.cli.common import (
     build_pipeline,
 )
@@ -87,7 +88,10 @@ def test_run_pdet_pose_writes_the_jax_file_names(runs):
     assert any(n.startswith("heatmap_") for n in names)
 
 
-def test_build_parser_takes_the_jax_options():
+def test_build_parser_takes_the_jax_options(monkeypatch):
+    # the compile cache flags repoint the process's build directory: put
+    # it back afterwards
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     def options(parser):
         return sorted(s for a in parser._actions for s in a.option_strings)
 

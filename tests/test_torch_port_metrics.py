@@ -318,6 +318,7 @@ def test_evaluate_exits_on_options_not_ported(extra, item, tmp_path, capsys,
     naming their ROADMAP item, before any model is built; the compile
     cache flags are accepted."""
     from human_body_proportion_estimation_tpu_torch.cli import common
+    from human_body_proportion_estimation_tpu_torch.ops import build
     from human_body_proportion_estimation_tpu_torch.cli import (
         evaluate as teval,
     )
@@ -325,6 +326,9 @@ def test_evaluate_exits_on_options_not_ported(extra, item, tmp_path, capsys,
     def no_model(*a, **k):
         raise AssertionError("a model was built")
 
+    # the compile cache flags repoint the process's build directory: put
+    # it back afterwards
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     monkeypatch.setattr(common, "InferencePipeline", no_model)
     with pytest.raises(SystemExit) as exc:
         teval.main(["--annotations", str(tmp_path / "a.json"),

@@ -191,7 +191,9 @@ def test_efficientdet_grouped_head_score_equals_the_per_level_path(
     """`EfficientDet.forward` scores its five levels with one
     `head_score_levels` call; its (best, person) must be, bit for bit, the
     per-level `head_score` outputs flattened and concatenated level-major,
-    and a second forward must reuse the cached predict-conv parameters."""
+    and both forwards must hand the kernel the predict conv's own
+    parameters (views of their storage, so that the kernel's packing cache
+    hits on the second)."""
     torch.manual_seed(0)
     tm = tedet.EfficientDet(_port_edet_config(tiny_edet_config()),
                             dtype=torch.float32).eval()
@@ -210,7 +212,10 @@ def test_efficientdet_grouped_head_score_equals_the_per_level_path(
         tm(imgs)
     assert len(calls) == 2 and len(calls[0][0]) == 5
     zs, weight, bias, a, c, person0 = calls[0]
-    assert calls[1][1] is weight and calls[1][2] is bias
+    conv = tm.class_net.predict_pw
+    for w_call, b_call in ((weight, bias), calls[1][1:3]):
+        assert w_call.data_ptr() == conv.weight.data_ptr()
+        assert b_call.data_ptr() == conv.bias.data_ptr()
     per_level = [kernels.head_score(z, weight, bias, a, c, person0)
                  for z in zs]
     assert torch.equal(

@@ -23,7 +23,7 @@ import human_body_proportion_estimation_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 59, names
+assert len(names) >= 62, names
 for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "serve.hbpe_pb2", "serve.kserve_pb2", "serve.wire",
              "serve.client", "serve.perf", "models.higherhrnet",
@@ -34,7 +34,8 @@ for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "training.data", "training.trainer", "training.loop",
              "training.detection", "training.certify", "training.bottomup",
              "training.certify_bottomup", "cli.certify",
-             "cli.certify_bottomup"):
+             "cli.certify_bottomup", "pipeline.export", "cli.export_artifact",
+             "utils.compile_cache"):
     assert port.__name__ + "." + name in names, name
 import chip_smoke
 assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax",
@@ -124,6 +125,10 @@ def test_entry_point_defaults_to_cuda_without_fallback():
         BottomUpPipeline,
         build_default,
     )
+    from human_body_proportion_estimation_tpu_torch.pipeline.export import (
+        ArtifactPipeline,
+        ServingArtifact,
+    )
     from human_body_proportion_estimation_tpu_torch.pipeline.host import (
         InferencePipeline,
     )
@@ -131,7 +136,7 @@ def test_entry_point_defaults_to_cuda_without_fallback():
     for fn in (InferencePipeline, detect_edet.run_demo_odet,
                pose_est.run_demo_pose_est, BottomUpPipeline,
                detect_pose_bottomup.run_bottomup,
-               build_default):
+               build_default, ArtifactPipeline, ServingArtifact):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         for make in (InferencePipeline, BottomUpPipeline):

@@ -596,7 +596,8 @@ def test_stage_timer_snapshot_matches_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--bottom-up", "--data-parallel", "2"], ["--artifact-dir", "x"],
+    ["--bottom-up", "--data-parallel", "2"],
+    ["--artifact-dir", "x", "--data-parallel", "2"],
     ["--data-parallel", "2"], ["--detector", "ssd_mobilenet"],
     ["--checkpoint-dir", "x"],
 ])
@@ -692,9 +693,28 @@ def test_packed_head_weights_pack_once(fast_switching, monkeypatch):
     assert all(p[0] is packs[0][0] and p[1] is packs[0][1] for p in packs)
 
 
-def test_class_predict_params_made_once(fast_switching, servers):
+def test_class_predict_params_made_once(fast_switching, servers,
+                                        monkeypatch):
+    """The class predict conv's weight and bias reach the head-score kernel
+    as views of the parameters themselves, so that the packing of the
+    kernel's operands is made once for all threads' forwards."""
+    from collections import OrderedDict
+
+    from human_body_proportion_estimation_tpu_torch.ops import kernels
+
     detector = servers["tpipe"].backend.detector
-    detector._class_predict_cache = (None, None, None)
+    conv = detector.class_net.predict_pw
+    monkeypatch.setattr(kernels, "_PACKED", OrderedDict())
+    a = detector.config.anchors.anchors_per_cell
+    c = detector.config.num_classes
+
+    def pack():
+        w, b = detector._class_predict_params()
+        return kernels._packed_head_weights(w, b, a, c, 0)
+
     params = run_threads(detector._class_predict_params)
-    assert all(p[0] is params[0][0] and p[1] is params[0][1]
-               for p in params)
+    assert all(p[0].data_ptr() == conv.weight.data_ptr()
+               and p[1].data_ptr() == conv.bias.data_ptr() for p in params)
+    packs = run_threads(pack)
+    assert len(kernels._PACKED) == 1
+    assert all(p[0] is packs[0][0] and p[1] is packs[0][1] for p in packs)

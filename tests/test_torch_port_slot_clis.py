@@ -36,6 +36,7 @@ from human_body_proportion_estimation_tpu_torch.models import (
     hrnet as thrnet,
     layers as tlayers,
 )
+from human_body_proportion_estimation_tpu_torch.ops import build
 from human_body_proportion_estimation_tpu_torch.models.weights import (
     flax_to_state_dict,
 )
@@ -287,6 +288,9 @@ def test_cli_mains_pass_the_jax_arguments(monkeypatch, argv):
     """The same command line gives the same call of `run_demo_odet` /
     `run_demo_pose_est` in both packages (the port's parsers take the JAX
     ones' flags, `--model` choices included)."""
+    # the compile cache flags repoint the process's build directory: put
+    # it back afterwards
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     calls = {}
     for side, module in (("jax", {"detect_edet": jdetect,
                                   "pose_est": jpose}[argv[0]]),
