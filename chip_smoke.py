@@ -134,8 +134,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      its maps equal to the port's CPU decode of them, and the grouped
      outputs and packed rows of both recorded decode configurations equal
      to the goldens' wherever the card's maxima lie within the noise the
-     goldens' decode withstood; the served bf16 form (random
-     from the seeded generator) at B=16 and B=1, launches 0 / 0 / 0,
+     goldens' decode withstood; the served bf16 form (random:
+     flax's init with PRNGKey(0)) at B=16 and B=1, launches 0 / 0 / 0,
      imgs/s, a torch.profiler split (chiprun_out/bottomup_profile_b16.txt)
      and the decode's CUDA launches and device time at B=16; the registry's
      higherhrnet running the pipeline's module; the serving edge over the
@@ -194,8 +194,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      before the servers start; `compile_cache.enable(dir)`: one process
      (`--cache-worker`, started with the phase) builds the kernels into
      dir with nvcc, a second finds them there with nvcc forbidden.
+  M. multi-device serving and training (ROADMAP item 16, second half) on
+     the one card: `InferencePipeline(mesh=make_mesh(devices=[cuda:0,
+     cuda:0]))` of the certified Lite4 -> W32 at B=16; in f32 (TF32 off)
+     its rows against the dp = 1 forward of each shard's own 8 rows
+     (<= 1e-4), and the registry over its mesh (`instance_group.count`
+     2, an `hrnet` batch against dp = 1 within 1e-4 of the peak); in bf16
+     one batch counted from 0 (exactly 2 launches of each kernel: one a
+     shard) and its rows against the goldens (phase 3's rule); two
+     processes over gloo on cuda:0 (`--mesh-worker`, each checking that
+     it serves on the card): `MultiHostServing` of the f32 pipeline
+     against this process serving the same rows (<= 1e-4), the worker
+     released by the zero-row sentinel, then one sharded float64 pose
+     step at dp = 2 (phase T's case, three Adam steps) against JAX's
+     float64 step on the global batch (the goldens of phase T) at phase
+     T's float64 tolerance; imgs/s at B=16, dp = 2 beside dp = 1 in turns (a
+     record: two shards on one card claim no scaling).
   4. report: a `kernels` JSON line (launches: phases 3, A, C, Y, D, U, E,
-     T and X), the card's name and power limit, and the result line
+     T, X and M), the card's name and power limit, and the result line
      {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX; builds into the package's gitignored `build/`.
@@ -220,7 +236,7 @@ F32_FLOP_PER_S = 67e12         # CUDA-core f32
 HEAD_TOL = (1e-3, 1e-3)        # (abs, rel), kernel vs plain head-score
 GOLDEN_MEAN_CM, GOLDEN_MAX_CM = 1.0, 6.0
 FILE_ROUTE = "/body_proportion_length_estimation_file"
-ALL_PHASES = "ABCYDUETX"
+ALL_PHASES = "ABCYDUETXM"
 
 
 def log(msg: str) -> None:
@@ -2552,7 +2568,7 @@ def run_bottom_up(k, dev, repo, batch=16):
         f"equals the port's CPU decode of them; outputs "
         f"{json.dumps({k_: figures[f'f32_{k_}'] for k_ in held})}")
 
-    # 3. the served form: bf16, random from the seeded generator (what
+    # 3. the served form: bf16, random from flax's PRNGKey(0) init (what
     # `serve.server --bottom-up` builds without the certified checkpoint)
     bpipe = BottomUpPipeline(device=dev)
     assert bpipe.weights_origin == {"pose": "random"}
@@ -2641,7 +2657,7 @@ def run_bottom_up(k, dev, repo, batch=16):
         f"{json.dumps(figures['seeded_server'])}")
 
     # 6. `serve.server --bottom-up` (the default detector) in a subprocess,
-    # random from the seeded generator as `bpipe`: /health, the file route
+    # random from flax's PRNGKey(0) init as `bpipe`: /health, the file route
     # under 16 requests from 4 clients (each answer equal to its scene's
     # in-process forward at batch size 1, 2 or 4), the video route, the
     # registry's higherhrnet over HTTP and hbpe, hbpe Estimate
@@ -3513,6 +3529,234 @@ def run_artifact(k, lite4_pipe, repo):
 
 
 
+# --------------------------------------------------------------------- #
+# phase M: multi-device serving and training (ROADMAP item 16, second half)
+
+
+MESH_WORKERS = 2
+MESH_TOL = 1e-4
+
+
+def mesh_worker(rank, port, out):
+    """--mesh-worker: one of two processes on cuda:0 over gloo. (1)
+    `MultiHostServing` of the certified pipeline in f32 (TF32 off) on the
+    card (the process fails if the pipeline is elsewhere), rank 0 the
+    coordinator: the 16-image batch of the 3 scenes, 8 rows a
+    process, then the shutdown sentinel (rank 1 leaves `worker_loop` on
+    it); (2) one sharded float64 pose step at dp = 2 (the phase T case of
+    tests/torch_port_train.py, batch 2: one row a process), three Adam
+    steps. Rank 0 writes both results to `out`."""
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.parallel import (
+        multihost as mh,
+    )
+    from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        decode_image_bytes,
+        prepare_batch,
+    )
+    from human_body_proportion_estimation_tpu_torch.training import (
+        trainer as T,
+    )
+
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    mh.init_multihost(f"127.0.0.1:{port}", MESH_WORKERS, rank)
+    result = {}
+    pipe, serving = mh.make_multihost_pipeline(
+        detector="efficientdet_lite4", dtype=torch.float32)
+    assert pipe.device.type == "cuda", pipe.device
+    result["device"] = str(pipe.device)
+    if serving.is_coordinator:
+        golden, scene_bytes = _scenes()
+        images = [decode_image_bytes(b) for b in scene_bytes]
+        *batch, _ = prepare_batch(
+            pipe.config, [images[i % 3] for i in range(16)],
+            golden["person_height_cm"], golden["det_threshold"], 16)
+        result["rows"] = serving.coordinator_step(*batch).tolist()
+        serving.shutdown()
+    else:
+        serving.worker_loop()
+    result["left_worker_loop"] = True
+
+    cases = load_tests_module("torch_port_train")
+    model, _ = cases.model_and_state("pose", torch.float64)
+    state = cases.make_state("pose", model.double())
+    step, sstate = T.make_sharded_train_step(
+        state, make_mesh(devices=["cuda:0"] * MESH_WORKERS))
+    t = cases.to_device(cases.inputs("pose"), "cuda:0")
+    imgs = t["images"].permute(0, 3, 1, 2).double() / 255.0
+    tgt = T.heatmap_targets(t["kp_hm"], t["visible"], 96, 72, 2.0)
+    got = {"losses": []}
+    t0 = time.perf_counter()
+    for i in range(cases.STEPS):
+        sstate, loss = step(sstate, imgs, tgt, t["visible"].double(), 12.0)
+        got["losses"].append(float(loss))
+        if i == 0:
+            grads = {n: p.grad.double() for n, p in
+                     sstate.model.named_parameters() if p.grad is not None}
+            got["grad_norm"] = float(torch.sqrt(sum(
+                (g * g).sum() for g in grads.values())))
+            got["grad_norms"] = {n: float(grads[n].norm())
+                                 for n in cases.GRADS["pose"]}
+            for prefix, name in zip(("bn", "bn_low"), cases.BN["pose"]):
+                bn = sstate.model.get_submodule(name)
+                got[f"{prefix}_mean"] = bn.running_mean.cpu().tolist()
+                got[f"{prefix}_var"] = bn.running_var.cpu().tolist()
+    result["train"] = got
+    result["train_s"] = time.perf_counter() - t0
+    if rank == 0:
+        with open(out, "w") as fh:
+            json.dump(result, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _scenes():
+    with open(os.path.join(DATA, "goldens.json")) as fh:
+        golden = json.load(fh)
+    scene_bytes = []
+    for name in golden["scenes"]:
+        with open(os.path.join(DATA, name), "rb") as fh:
+            scene_bytes.append(fh.read())
+    return golden, scene_bytes
+
+
+def run_mesh(k, dev, lite4_pipe, repo):
+    """Phase M: the main path at dp = 2 on one card (a mesh listing cuda:0
+    twice), two lockstep processes, and the sharded pose step. Returns the
+    launches of one dp = 2 serving batch, counted from 0."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        InferencePipeline,
+        decode_image_bytes,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.registry import (
+        build_registry,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase_m_")
+    out = os.path.join(tmp, "mesh_worker.json")
+    port = free_port()
+    me = os.path.abspath(__file__)
+    workers = [subprocess.Popen(
+        [sys.executable, me, "--repo", repo, "--mesh-worker", str(r),
+         str(port), out],
+        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(MESH_WORKERS)]
+
+    golden, scene_bytes = _scenes()
+    images = [decode_image_bytes(b) for b in scene_bytes]
+    height, thres = golden["person_height_cm"], golden["det_threshold"]
+    batch16 = [images[i % 3] for i in range(16)]
+    mesh = make_mesh(devices=[dev, dev])
+
+    # 1. f32 (TF32 off): the dp = 2 rows against the dp = 1 forward of
+    # each shard's own 8 rows (cuDNN picks its algorithm by batch size)
+    f32 = [InferencePipeline(device=dev, detector="efficientdet_lite4",
+                             dtype=torch.float32, mesh=m)
+           for m in (None, mesh)]
+    ref = np.concatenate([f32[0].infer_serving(batch16[:8], height, thres),
+                          f32[0].infer_serving(batch16[8:], height, thres)])
+    got = f32[1].infer_serving(batch16, height, thres)
+    err = float(np.abs(got - ref).max())
+    log(f"phase M: f32 dp = 2 rows against dp = 1 per shard: max |diff| "
+        f"{err:.3g} (tolerance {MESH_TOL})")
+    assert got.shape == (16, 3, 23) and err <= MESH_TOL, err
+    assert got[:, :, 0].sum() > 0
+
+    # 2. the registry over the pipeline's mesh: instance_group.count is
+    # dp, and a sharded `hrnet` batch answers as the one-device one
+    regs = [build_registry(p) for p in f32]
+    assert regs[1].config("hrnet")["instance_group"][0]["count"] == 2
+    assert regs[0].config("hrnet")["instance_group"][0]["count"] == 1
+    crops = np.random.default_rng(0).random((4, 3, 384, 288), np.float32)
+    outs = [r.infer("hrnet", {"input": crops})["output"] for r in regs]
+    for r in regs:
+        r.shutdown()
+    reg_err = float(np.abs(outs[1] - outs[0]).max()
+                    / np.abs(outs[0]).max())
+    log(f"phase M: registry hrnet at dp = 2: instance_group.count 2, "
+        f"rows against dp = 1: {reg_err:.3g} of the peak")
+    assert reg_err <= MESH_TOL, reg_err
+    del f32, regs
+
+    # 3. bf16, the serving dtype: one dp = 2 batch, counted from 0: every
+    # kernel launches once a shard; rows against the goldens (phase 3)
+    bf16 = InferencePipeline(device=dev, detector="efficientdet_lite4",
+                             mesh=mesh)
+    k.reset_launch_counts()
+    packed = bf16.infer_serving(batch16, height, thres)
+    launches = k.launch_counts()
+    log(f"phase M: dp = 2 launches of one batch: {launches}")
+    assert launches == dict.fromkeys(KERNELS, 2), launches
+    figures = packed_against(packed[:3], golden["packed"], "dp = 2 bf16")
+    log(f"phase M: dp = 2 bf16 against the goldens: {json.dumps(figures)}")
+
+    # 4. two lockstep processes against this one process (f32)
+    logs = [w.communicate(timeout=600)[0] for w in workers]
+    for w, text in zip(workers, logs):
+        assert w.returncode == 0, text[-4000:]
+    with open(out) as fh:
+        worker = json.load(fh)
+    one = InferencePipeline(device=dev, detector="efficientdet_lite4",
+                            dtype=torch.float32)
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        prepare_batch,
+    )
+
+    *arrays, _ = prepare_batch(one.config, batch16, height, thres, 16)
+    ref = np.concatenate([one.serving_rows(*(a[:8] for a in arrays)),
+                          one.serving_rows(*(a[8:] for a in arrays))])
+    mh_err = float(np.abs(np.asarray(worker["rows"], np.float32)
+                          - ref).max())
+    log(f"phase M: two processes over gloo, served on "
+        f"{worker['device']}: rows against one process max |diff| "
+        f"{mh_err:.3g}; both left on the sentinel: "
+        f"{worker['left_worker_loop']}")
+    assert mh_err <= MESH_TOL and worker["left_worker_loop"], mh_err
+    assert worker["device"].startswith("cuda"), worker["device"]
+    del one
+
+    # 5. the sharded float64 pose step against JAX's float64 step on the
+    # global batch (phase T's case and goldens), at phase T's tolerance
+    cases = load_tests_module("torch_port_train")
+    with open(os.path.join(DATA, "train_goldens.json")) as fh:
+        golden = json.load(fh)
+    tol = golden["tolerance"]["float64"]["pose"]
+    grouped = cases.group(cases.compare(worker["train"],
+                                        golden["cases"]["pose"]))
+    log(f"phase M: sharded float64 pose step (dp = 2, two processes, "
+        f"{worker['train_s']:.1f} s) against the JAX float64 goldens: "
+        f"{json.dumps({g: float(f'{v:.3g}') for g, v in grouped.items()})}"
+        f" (tolerance {json.dumps(tol)})")
+    assert all(grouped[g] <= tol[g] for g in tol), (grouped, tol)
+
+    # 6. imgs/s at B = 16, dp = 2 on one card beside dp = 1, in turns
+    rates = {"dp1": [], "dp2": []}
+    for _ in range(2):
+        for name, p in (("dp1", lite4_pipe), ("dp2", bf16)):
+            rates[name].append(imgs_per_s(p, batch16, height, thres))
+    log(f"phase M: infer_serving imgs/s at B = 16 (bf16, in turns): "
+        f"{json.dumps({n: [round(r, 2) for r in v] for n, v in rates.items()})}"  # noqa: E501
+        f" on {card_line()} (two shards on one card: a record, no scaling "
+        f"claim)")
+    log(f"phase M: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -3538,6 +3782,9 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--forbid-nvcc", action="store_true",
                     help=argparse.SUPPRESS)
+    # phase M's two lockstep processes
+    ap.add_argument("--mesh-worker", nargs=3,
+                    metavar=("RANK", "PORT", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3552,6 +3799,8 @@ def main() -> int:
         return cache_worker(args.cache_worker, args.forbid_nvcc)
     if args.slots_worker:
         return slots_worker()
+    if args.mesh_worker:
+        return mesh_worker(*args.mesh_worker)
     from human_body_proportion_estimation_tpu_torch.ops import build
     from human_body_proportion_estimation_tpu_torch.ops import kernels as k
     from human_body_proportion_estimation_tpu_torch.pipeline.host import (
@@ -3596,13 +3845,14 @@ def main() -> int:
             "E": lambda: run_evaluate(k, pipe, repo),
             "T": lambda: run_training(k, dev, repo),
             "X": lambda: run_artifact(k, pipe, repo),
+            "M": lambda: run_mesh(k, dev, pipe, repo),
         }
         # the kernels line counts the launches of every path driven: the
         # main path (phase 3), the serving edge (A), the registry and wire
         # protocols (C), the YOLO slot (Y), the other slots (D), bottom-up
         # pose (U: none), the evaluate CLI's pipeline (E), the certify
-        # CLIs of training (T) and the artifact's batches (X), each counted
-        # from 0 just before it
+        # CLIs of training (T), the artifact's batches (X) and one dp = 2
+        # batch (M), each counted from 0 just before it
         for name, run in phases.items():
             if name in args.phases:
                 counts = run() or {}

@@ -505,7 +505,7 @@ def main(argv=None):
         log(f"pose dataset {crops.shape} "
             f"({crops.nbytes / 1e6:.0f} MB on the device); training "
             f"{args.pose_steps} steps @ batch {args.pose_batch}")
-        init_flax_default(pose_model, torch.Generator().manual_seed(args.seed))
+        init_flax_default(pose_model, args.seed)
         t0 = time.perf_counter()
         pose_state, pose_losses = C.train_pose_resident(
             pose_model, crops, kp_hm, vis,
@@ -536,7 +536,7 @@ def main(argv=None):
         imgs, gt_boxes, gt_classes, gt_valid = C.det_arrays(det_subset)
         log(f"det dataset {imgs.shape} ({imgs.nbytes / 1e6:.0f} MB); "
             f"training {args.det_steps} steps @ batch {args.det_batch}")
-        init_det_flax(det_model, torch.Generator().manual_seed(args.seed))
+        init_det_flax(det_model, args.seed)
         t0 = time.perf_counter()
         det_state, det_losses = C.train_det_resident(
             det_model, imgs, gt_boxes, gt_classes, gt_valid,

@@ -333,7 +333,7 @@ def main(argv=None):
         log(f"dataset {imgs.shape} ({imgs.nbytes / 1e6:.0f} MB on the "
             f"device); training {args.steps} steps @ batch {args.batch}")
         model = make_model().to(device)
-        init_flax_default(model, torch.Generator().manual_seed(args.seed))
+        init_flax_default(model, args.seed)
         t0 = time.perf_counter()
         pose_state, losses = CB.train_bottomup_resident(
             model, imgs, kp, vis,

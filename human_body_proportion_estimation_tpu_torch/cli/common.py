@@ -20,7 +20,7 @@ def build_pipeline(args=None) -> InferencePipeline:
     default weights when no --checkpoint-dir is given: the committed
     synthetic-certified HRNet-W32 pose, before the certified
     EfficientDet-Lite4, or, for `--detector efficientdet_lite0` (and the
-    YOLOv5 slots), a detector at random from a seeded torch.Generator (no
+    YOLOv5 slots), a detector at random, flax's init with PRNGKey(0) (no
     weights for it are in the repository; /health and the log say
     "random"). Options the port does not serve yet exit with code 2 and
     the ROADMAP.md item that brings them."""

@@ -14,8 +14,8 @@ model input size to the displayed image (:136-141) when drawn.
 In process, `EdetDetectPipeline` runs on the GPU: the canonical all-class
 head and one NMS sweep kernel launch a frame. No weights for this CLI
 are in the repository: the detector (Lite4 or Lite0) is initialized at
-random from a seeded torch.Generator (`models.layers.init_random`), as the
-JAX CLI initializes its flax model from `PRNGKey(0)`.
+random (`models.layers.init_random`) as the JAX CLI initializes its flax
+model, from `PRNGKey(0)`.
 
 `-g/--grpc_port` switches to remote mode: the CLI calls the serving
 edge's named `edetlite4` model over the tensor-level ModelInfer RPC, the

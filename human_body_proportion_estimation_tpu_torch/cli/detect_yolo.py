@@ -13,8 +13,8 @@ on the CPU with `--cpu` (f32, the caller's choice; nothing moves to the
 CPU by itself), with the JAX package's 512 candidates: on the GPU one
 NMS sweep kernel launch a frame (`--legacy-nms`: the kernel's +1-pixel IoU
 variant). No YOLO weights are in the repository: the detector is
-initialized at random from a seeded torch.Generator, as the JAX CLI
-random-initializes its flax model.
+initialized at random as the JAX CLI initializes its flax model, from
+`PRNGKey(0)` (`models.layers.init_random`).
 
 `-g/--grpc_port` switches to remote mode — the reference's split: the
 named `yolov5m`/`yolov5s` model runs server-side (ModelInfer returning the

@@ -13,8 +13,8 @@ rendering and summed-heatmap plots (drawn with cv2).
 Two execution modes, mirroring the reference's client/server split:
 in process (default: `PosePipeline` on the GPU, the decode kernel on its
 heatmaps; no weights for this CLI are in the repository, so the model
-is initialized at random from a seeded torch.Generator, as the JAX CLI
-initializes its flax model from `PRNGKey(0)`), and remote via
+is initialized at random as the JAX CLI initializes its flax model, from
+`PRNGKey(0)`), and remote via
 `-g/--grpc_port`: the CLI calls the serving edge's named
 `hrnet`/`higherhrnet` model through the tensor-level ModelInfer RPC and
 decodes the heatmaps that come back over the wire on the host
@@ -88,8 +88,8 @@ def _remote_infer_fn(grpc_target: str, model_name: str):
 
 
 def _local_infer_fn(model_name: str, device: str, dtype: torch.dtype):
-    """In-process closure: the named pose model at random from a seeded
-    torch.Generator, `PosePipeline` on `device`."""
+    """In-process closure: the named pose model at random (flax's init
+    with PRNGKey(0)), `PosePipeline` on `device`."""
     from human_body_proportion_estimation_tpu_torch.models import (
         higherhrnet,
         hrnet,

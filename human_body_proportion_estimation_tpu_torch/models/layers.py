@@ -24,12 +24,17 @@ uses symmetric (k-1)//2 padding instead (`same=False`, flax
 
 from __future__ import annotations
 
-import math
+import contextlib
+import contextvars
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from human_body_proportion_estimation_tpu_torch.models.flax_init import (
+    init_state_dict,
+)
 
 Act = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
@@ -83,6 +88,39 @@ class Conv2d(nn.Conv2d):
         return F.conv2d(x, w, b, self.stride, pad, 1, self.groups)
 
 
+# the cross-process sum of `global_batch_statistics`, in the thread (or
+# task) inside it
+_BATCH_SUM: contextvars.ContextVar = contextvars.ContextVar(
+    "hbpe_batch_sum", default=None)
+
+
+@contextlib.contextmanager
+def global_batch_statistics(reduce: Callable[[torch.Tensor], torch.Tensor]):
+    """While inside, train-mode `batch_norm` takes its statistics over the
+    batch of every process: `reduce(t)` is the (differentiable) sum of `t`
+    over the processes holding the batch's shards."""
+    token = _BATCH_SUM.set(reduce)
+    try:
+        yield
+    finally:
+        _BATCH_SUM.reset(token)
+
+
+def _global_batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor, reduce):
+    """(output, batch mean, biased batch variance) of train-mode BatchNorm
+    over the whole batch, from this shard `x` and `reduce`: two passes
+    (the mean, then the centred squares), in f32 for half inputs."""
+    xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+    dims = [0, 2, 3]
+    n = reduce(xf.new_full((1,), x.numel() // x.shape[1]))
+    mean = reduce(xf.sum(dims)) / n
+    d = xf - mean[None, :, None, None]
+    var = reduce((d * d).sum(dims)) / n
+    scale = torch.rsqrt(var + bn.eps) * bn.weight
+    y = d * scale[None, :, None, None] + bn.bias[None, :, None, None]
+    return y.to(x.dtype), mean.detach(), var.detach()
+
+
 def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     """BatchNorm of NCHW `x` in f32 math, output in x's dtype.
 
@@ -96,17 +134,28 @@ def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     0.03 (flax 0.97). `F.batch_norm(training=True)` would move
     `running_var` with the unbiased variance (n / (n - 1) larger), so it
     fills two scratch buffers at momentum 1 and the update is written
-    here."""
+    here.
+
+    Inside `global_batch_statistics(reduce)` the batch statistics are
+    those of a batch split over processes: the per-channel sums are summed
+    over them by `reduce` (differentiable), so every shard normalizes with
+    the mean and biased variance of the whole batch, as one process over
+    the whole batch does (a sharded train step)."""
     if not bn.training:
         return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps)
-    mean = torch.zeros_like(bn.running_mean)
-    var = torch.zeros_like(bn.running_var)
-    y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 1.0, bn.eps)
-    n = x.numel() // x.shape[1]
-    with torch.no_grad():
+    reduce = _BATCH_SUM.get()
+    if reduce is not None:
+        y, mean, biased = _global_batch_norm(bn, x, reduce)
+    else:
+        mean = torch.zeros_like(bn.running_mean)
+        var = torch.zeros_like(bn.running_var)
+        y = F.batch_norm(x, mean, var, bn.weight, bn.bias, True, 1.0,
+                         bn.eps)
+        n = x.numel() // x.shape[1]
         # the scratch buffers are saved for backward: read, never write
         biased = var * ((n - 1) / n)
+    with torch.no_grad():
         keep = 1.0 - bn.momentum
         bn.running_mean.copy_(keep * bn.running_mean + bn.momentum * mean)
         bn.running_var.copy_(keep * bn.running_var + bn.momentum * biased)
@@ -190,62 +239,23 @@ class SeparableConvBN(nn.Module):
         return x if self.act is None else self.act(x)
 
 
-def _fan_in(module: nn.Module) -> int:
-    """The inputs one output of `module`'s kernel sums over, as flax counts
-    them on its HWIO kernel (kh * kw * in / groups; for a transposed conv
-    kh * kw * in)."""
-    w = module.weight
-    if isinstance(module, nn.ConvTranspose2d):
-        return w.shape[0] * w.shape[2] * w.shape[3]
-    return w[0].numel()
-
-
-def init_flax_default(model: nn.Module,
-                      generator: torch.Generator) -> nn.Module:
-    """Re-initialize `model` the way flax's `init` does, drawing from
-    `generator` (a CPU generator; the model may live on any device):
-    conv and transposed-conv kernels `lecun_normal` (a normal truncated at
-    two standard deviations, rescaled to variance 1 / fan_in), biases 0,
-    BatchNorm at unit scale, zero shift, mean 0 and variance 1. The JAX
-    package trains from this init (`training/trainer.create_train_state`);
-    `init_random`, torch's own, has a third of its variance."""
+def init_flax_default(model: nn.Module, seed: int) -> nn.Module:
+    """Re-initialize `model` exactly as flax's `init` with
+    `jax.random.PRNGKey(seed)` initializes its JAX twin
+    (`models/flax_init.init_state_dict`): conv and transposed-conv kernels
+    `lecun_normal` from each parameter's own key, biases 0, BatchNorm at
+    unit scale, zero shift, mean 0 and variance 1. The JAX package trains
+    from this init (`training/trainer.create_train_state`)."""
+    drawn = init_state_dict(model, seed)
     with torch.no_grad():
-        for module in model.modules():
-            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
-                # truncated_normal's stddev correction, flax
-                # initializers.variance_scaling
-                std = (1.0 / _fan_in(module)) ** 0.5 / .87962566103423978
-                w = torch.empty(module.weight.shape)
-                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
-                                      generator=generator)
-                module.weight.copy_(w)
-                if module.bias is not None:
-                    module.bias.zero_()
-            elif isinstance(module, nn.BatchNorm2d):
-                module.reset_parameters()
+        for key, value in model.state_dict().items():
+            value.copy_(drawn[key])
     return model
 
 
 def init_random(model: nn.Module) -> nn.Module:
-    """Re-initialize every parameter and statistic of `model` from an
-    explicit `torch.Generator` seeded with 0, the way torch
-    initializes fresh layers (conv and transposed-conv weights
-    Kaiming-uniform with a = sqrt(5), biases uniform in +-fan_in^-1/2,
-    BatchNorm at unit scale, zero shift, mean 0, variance 1): the random
-    model a slot serves when it is given no weights, the same on every
+    """The random model a slot serves when it is given no weights: flax's
+    `init` with `jax.random.PRNGKey(0)` (`init_flax_default(model, 0)`),
+    as the JAX package initializes its random slots, the same on every
     call and machine."""
-    g = torch.Generator().manual_seed(0)
-    with torch.no_grad():
-        for module in model.modules():
-            if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
-                w = torch.empty(module.weight.shape)
-                nn.init.kaiming_uniform_(w, a=math.sqrt(5), generator=g)
-                module.weight.copy_(w)
-                if module.bias is not None:
-                    bound = (w[0].numel()) ** -0.5
-                    b = torch.empty(module.bias.shape).uniform_(
-                        -bound, bound, generator=g)
-                    module.bias.copy_(b)
-            elif isinstance(module, nn.BatchNorm2d):
-                module.reset_parameters()
-    return model
+    return init_flax_default(model, 0)

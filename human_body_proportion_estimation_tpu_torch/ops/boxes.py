@@ -12,6 +12,12 @@ from typing import Tuple
 import torch
 
 
+def xyxy2xywh(b: torch.Tensor) -> torch.Tensor:
+    """[..., 4] corner -> center-size (reference onnx_utils.py:269-277)."""
+    x1, y1, x2, y2 = b.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], -1)
+
+
 def xywh2xyxy(b: torch.Tensor) -> torch.Tensor:
     """[..., 4] center-size -> corner (reference onnx_utils.py:280-288)."""
     cx, cy, w, h = b.unbind(-1)

@@ -49,6 +49,11 @@ from human_body_proportion_estimation_tpu_torch.ops import (
     heatmap as hm_ops,
     proportions as prop_ops,
 )
+from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+    pad_to_shards,
+    replica,
+    to_shards,
+)
 from human_body_proportion_estimation_tpu_torch.pipeline.full import (
     pack_serving,
 )
@@ -115,12 +120,15 @@ class BottomUpPipeline:
     `maybe_load_certified(bottom_up=True)`), labelled "real" in
     `weights_origin` (callers relabel the certified checkpoint
     "synthetic-certified"); without one the model is initialized at random
-    from a torch.Generator seeded with 0 (`models.layers.init_random`),
+    as flax's init with PRNGKey(0) does (`models.layers.init_random`),
     labelled "random", with the JAX package's warning. `dtype`: the trunk's
     compute dtype (bf16 by default; f32 for numerics-sensitive
     comparisons). `model`: a HigherHRNet instance in place of the default
-    W32 one (the tests' depth-reduced config). `mesh`: multi-device
-    serving, not ported yet (ROADMAP.md item 16).
+    W32 one (the tests' depth-reduced config). `mesh`: a
+    `parallel.mesh.Mesh` to serve data-parallel over its 'data' axis, as
+    `InferencePipeline(mesh=)` does: the model replicated once on each
+    other device of the mesh, the batch padded to a multiple of dp, each
+    shard's forward and decode on its device, the rows back in order.
 
     `stages`: an optional `utils.profiling.StageTimer` that
     `infer_serving` reports `host_prepare`, `device_upload` and
@@ -143,10 +151,9 @@ class BottomUpPipeline:
         model: Optional[HigherHRNet] = None,
         mesh=None,
     ):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "BottomUpPipeline(mesh=...) is not ported yet: ROADMAP.md "
-                "item 16 (multi-device serving)")
+            device = mesh.data_devices[0]
         self.config = config or PipelineConfig()
         self.max_people = max_people or self.config.detector.max_persons
         self.max_cands = max_cands
@@ -182,14 +189,23 @@ class BottomUpPipeline:
                 **self.weights_origin,
             )
 
+    @property
+    def shard_models(self) -> list:
+        """The model of each data shard (one without a mesh): `model`
+        replicated on the shard's device."""
+        if self.mesh is None:
+            return [self.model]
+        return [replica(self.model, d) for d in self.mesh.data_devices]
+
     # ------------------------------------------------------------------ #
 
-    def aggregate(self, images: torch.Tensor):
+    def aggregate(self, images: torch.Tensor, model=None):
         """uint8 [B, H, W, 3] -> (heat, tags), both f32 [B, K, H/2, W/2]:
-        the model's maps at 1/2 resolution."""
+        the maps at 1/2 resolution of `model` (the pipeline's by
+        default)."""
         k = self.config.pose.num_keypoints
         x = images.permute(0, 3, 1, 2).float() / 255.0
-        outs = self.model(x)
+        outs = (model or self.model)(x)
         out1, out2 = outs["output_1"], outs["output_2"]
         heat = (upsample2x(out1[:, :k]) + out2) / 2.0
         return heat, upsample2x(out1[:, k:])
@@ -203,10 +219,12 @@ class BottomUpPipeline:
     ) -> BottomUpOutputs:
         return self.outputs(images, person_heights, orig_hw)
 
-    def outputs(self, images, person_heights, orig_hw) -> BottomUpOutputs:
-        """`forward` without `torch.inference_mode` (`BottomUpProgram`)."""
+    def outputs(self, images, person_heights, orig_hw,
+                model=None) -> BottomUpOutputs:
+        """`forward` without `torch.inference_mode` (`BottomUpProgram`),
+        on `model` (the pipeline's by default)."""
         with record_function("hbpe.bottomup_model"):
-            heat, tags = self.aggregate(images)
+            heat, tags = self.aggregate(images, model)
         with record_function("hbpe.bottomup_decode"):
             return self.decode(heat, tags, person_heights, orig_hw)
 
@@ -259,12 +277,14 @@ class BottomUpPipeline:
             seg_visible=seg_visible,
         )
 
-    def forward_serving(self, images, person_heights,
-                        orig_hw) -> torch.Tensor:
-        """Packed [B, P, 23] (valid | 11 lengths | 11 visibility): the
-        single-readback serving layout of the top-down pipeline, so the
-        HTTP / gRPC edge and its batchers serve both alike."""
-        out = self.forward(images, person_heights, orig_hw)
+    def forward_serving(self, images, person_heights, orig_hw,
+                        model=None) -> torch.Tensor:
+        """Packed [B, P, 23] (valid | 11 lengths | 11 visibility) of
+        `model` (the pipeline's by default): the single-readback serving
+        layout of the top-down pipeline, so the HTTP / gRPC edge and its
+        batchers serve both alike. Without `torch.inference_mode`, as
+        `BottomUpProgram` exports it; `infer_serving` runs it under one."""
+        out = self.outputs(images, person_heights, orig_hw, model)
         return pack_serving(out.person_valid, out.lengths_cm,
                             out.seg_visible)
 
@@ -273,12 +293,29 @@ class BottomUpPipeline:
             return contextlib.nullcontext()
         return self.stages.stage(name)
 
-    def _upload(self, arrays):
+    def _upload(self, arrays) -> list:
+        """Host arrays -> [per shard: the arrays' rows on its device]."""
         with self._stage("device_upload"):
-            args = [torch.from_numpy(a).to(self.device) for a in arrays]
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-        return args
+            return to_shards(arrays, [self.device] if self.mesh is None
+                             else self.mesh.data_devices)
+
+    @torch.inference_mode()
+    def _run(self, shards, packed: bool):
+        """Each shard's forward on its own model (packed rows, or the
+        outputs), read back and concatenated in order."""
+        run = self.forward_serving if packed else self.outputs
+        outs = [run(*args, model=model)
+                for model, args in zip(self.shard_models, shards)]
+        if packed:
+            return np.concatenate([o.cpu().numpy() for o in outs])
+        return BottomUpOutputs(*(np.concatenate([x.cpu().numpy()
+                                                 for x in parts])
+                                 for parts in zip(*outs)))
+
+    def _padded(self, b: int) -> int:
+        if self.mesh is None:
+            return b
+        return pad_to_shards(b, self.mesh.shape["data"])
 
     def infer_serving(
         self,
@@ -291,12 +328,13 @@ class BottomUpPipeline:
         """One packed [n, P, 23] array, the batch padded to the
         power-of-two bucket as `InferencePipeline.infer_serving` pads it."""
         with self._stage("host_prepare"):
-            b = _pad_batch(len(images_rgb), self.config.serve.max_batch)
+            b = self._padded(_pad_batch(len(images_rgb),
+                                        self.config.serve.max_batch))
             *arrays, n = prepare_batch_bottomup(
                 images_rgb, person_heights, b, self.max_people, self.INPUT_HW)
-        args = self._upload(arrays)
+        shards = self._upload(arrays)
         with self._stage("device_compute_readback"):
-            packed = self.forward_serving(*args).cpu().numpy()
+            packed = self._run(shards, packed=True)
         return packed[:n]
 
     def infer_images(
@@ -304,20 +342,22 @@ class BottomUpPipeline:
         images_rgb: Sequence[np.ndarray],
         person_heights: Sequence[float] | float = 175.0,
     ) -> BottomUpOutputs:
-        """Host path: resize to 512x512, run the n images unpadded, fetch
-        every output as a numpy array."""
+        """Host path: resize to 512x512, run the n images (unpadded; under
+        a mesh padded to a multiple of dp), fetch every output as a numpy
+        array."""
         n = len(images_rgb)
+        b = self._padded(n)
         h, w = self.INPUT_HW
-        batch = np.zeros((n, h, w, 3), np.uint8)
-        orig_hw = np.ones((n, 2), np.float32)
-        heights = np.full((n, self.max_people), 175.0, np.float32)
+        batch = np.zeros((b, h, w, 3), np.uint8)
+        orig_hw = np.ones((b, 2), np.float32)
+        heights = np.full((b, self.max_people), 175.0, np.float32)
         for i, img in enumerate(images_rgb):
             batch[i] = resize_for_detector(img, w, h)
             orig_hw[i] = img.shape[:2]
             hi = person_heights
             heights[i, :] = float(hi if np.isscalar(hi) else hi[i])
-        out = self.forward(*self._upload((batch, heights, orig_hw)))
-        return BottomUpOutputs(*(x.cpu().numpy() for x in out))
+        out = self._run(self._upload((batch, heights, orig_hw)), packed=False)
+        return BottomUpOutputs(*(x[:n] for x in out))
 
 
 class BottomUpProgram(torch.nn.Module):
@@ -332,20 +372,21 @@ class BottomUpProgram(torch.nn.Module):
         self._pipeline = (pipeline,)   # a tuple: not registered as a module
 
     def forward(self, images, person_heights, orig_hw):
-        out = self._pipeline[0].outputs(images, person_heights, orig_hw)
-        return pack_serving(out.person_valid, out.lengths_cm,
-                            out.seg_visible)
+        return self._pipeline[0].forward_serving(images, person_heights,
+                                                 orig_hw)
 
 
 def build_default(device: str | torch.device = "cuda",
-                  dtype: torch.dtype = torch.bfloat16) -> BottomUpPipeline:
+                  dtype: torch.dtype = torch.bfloat16,
+                  mesh=None) -> BottomUpPipeline:
     """The bottom-up pipeline the server's `--bottom-up` and the CLI build:
     the committed synthetic-certified HigherHRNet where the repository
     holds it (`models.weights.maybe_load_certified(bottom_up=True)`),
-    labelled so, else a random HigherHRNet labelled "random"."""
+    labelled so, else a random HigherHRNet labelled "random"; over
+    `mesh` when given."""
     _, pose_state = maybe_load_certified(bottom_up=True)
     pipeline = BottomUpPipeline(pose_state=pose_state, device=device,
-                                dtype=dtype)
+                                dtype=dtype, mesh=mesh)
     if pose_state is not None:
         pipeline.weights_origin["pose"] = "synthetic-certified"
     return pipeline

@@ -40,6 +40,10 @@ import torch
 from human_body_proportion_estimation_tpu_torch.ops import (  # noqa: F401
     kernels,
 )
+from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+    same_device,
+    to_shards,
+)
 from human_body_proportion_estimation_tpu_torch.pipeline import (
     bottomup,
     host,
@@ -75,7 +79,7 @@ def export_serving_artifact(pipeline, directory: str,
     traced on the pipeline's device, which the artifact then serves on."""
     os.makedirs(directory, exist_ok=True)
     b = batch_size
-    if not hasattr(pipeline, "fused"):
+    if not hasattr(pipeline, "program"):
         return _export_bottomup(pipeline, directory, b)
     cfg = pipeline.config
     dev = pipeline.device
@@ -87,7 +91,7 @@ def export_serving_artifact(pipeline, directory: str,
         torch.zeros((b, p), dtype=torch.float32, device=dev),
         torch.ones((b, 2), dtype=torch.float32, device=dev),
     )
-    _export(pipeline.fused.program, args, directory)
+    _export(pipeline.program, args, directory)
     _write_meta(directory, {
         "format_version": FORMAT_VERSION,
         "batch_size": b,
@@ -145,14 +149,22 @@ class ServingArtifact:
     the weights it was saved with. It runs under `torch.inference_mode`,
     which an export does not keep. `device`: where it serves (the GPU
     unless the caller asks for the CPU); it must be the device type the
-    artifact was exported on."""
+    artifact was exported on.
+
+    `mesh`: a `parallel.mesh.Mesh` to serve data-parallel over its 'data'
+    axis, as the JAX `ServingArtifact(mesh=)` does: one call takes
+    `batch_size` x dp rows (`effective_batch`), each shard of
+    `batch_size` contiguous rows runs the program on its device, and the
+    rows come back in order. The program is restored once per distinct
+    device of the mesh (moved there with `torch.export.passes.
+    move_to_device_pass` where that is not the device it was exported
+    on), not once per shard; `device` is then the first shard's."""
 
     def __init__(self, directory: str, mesh=None,
                  device: str | torch.device = "cuda"):
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "serving an artifact with mesh=... is not ported yet: "
-                "ROADMAP.md item 16 (multi-device serving)")
+            device = mesh.data_devices[0]
         with open(os.path.join(directory, "meta.json")) as f:
             self.meta = json.load(f)
         v = self.meta.get("format_version", 1)
@@ -171,7 +183,19 @@ class ServingArtifact:
                 f"on {exported_on}; export it again on {self.device.type}")
         self.mode = self.meta.get("mode", "top_down")
         path = os.path.join(directory, self.meta.get("program", PROGRAM))
-        self.program = torch.export.load(path).module()
+        exported = torch.export.load(path)
+        home = next(iter(exported.state_dict.values())).device
+        devices = [self.device] if mesh is None else mesh.data_devices
+        programs = {}
+        for d in dict.fromkeys(str(d) for d in devices):
+            if not same_device(home, torch.device(d)):
+                from torch.export.passes import move_to_device_pass
+
+                exported = move_to_device_pass(exported, d)
+            programs[d] = exported.module()
+        self.program = programs[str(self.device)]
+        # the program and device of each data shard
+        self.shards = [(programs[str(d)], torch.device(d)) for d in devices]
 
     @property
     def batch_size(self) -> int:
@@ -180,8 +204,8 @@ class ServingArtifact:
 
     @property
     def effective_batch(self) -> int:
-        """Rows one call consumes (one device: `batch_size`)."""
-        return self.batch_size
+        """Rows one call consumes: `batch_size` x the mesh's dp."""
+        return self.batch_size * len(self.shards)
 
     def __call__(
         self,
@@ -190,15 +214,17 @@ class ServingArtifact:
         heights: np.ndarray,     # [batch_size, P]
         orig_hw: np.ndarray,     # [batch_size, 2]
     ) -> np.ndarray:
-        dev = self.device
-        args = [torch.from_numpy(np.ascontiguousarray(images)).to(dev)]
+        """Packed rows of `effective_batch` prepared rows."""
+        arrays = [np.asarray(images, np.uint8)]
         if self.mode != "bottom_up":
-            args.append(torch.as_tensor(thresholds, dtype=torch.float32,
-                                        device=dev))
-        args += [torch.as_tensor(heights, dtype=torch.float32, device=dev),
-                 torch.as_tensor(orig_hw, dtype=torch.float32, device=dev)]
+            arrays.append(np.asarray(thresholds, np.float32))
+        arrays += [np.asarray(heights, np.float32),
+                   np.asarray(orig_hw, np.float32)]
+        shards = to_shards(arrays, [dev for _, dev in self.shards])
         with torch.inference_mode():
-            return self.program(*args).cpu().numpy()
+            outs = [program(*args)
+                    for (program, _), args in zip(self.shards, shards)]
+            return np.concatenate([o.cpu().numpy() for o in outs])
 
 
 class ArtifactPipeline:
@@ -215,7 +241,8 @@ class ArtifactPipeline:
     power-of-two buckets. Its stages are `host_prepare` and
     `device_compute_readback` (the upload is part of the latter): the
     live forward's `record_function` ranges are not part of an exported
-    graph. `mesh`: not ported yet (ROADMAP.md item 16).
+    graph. `mesh`: data-parallel serving (`ServingArtifact`): a chunk is
+    then `batch_size` x dp rows.
     """
 
     def __init__(self, directory: str, mesh=None,

@@ -172,25 +172,3 @@ class ServingProgram(torch.nn.Module):
             seg_visible=seg_visible,
             heatmaps=heatmaps if with_heatmaps else None,
         )
-
-
-class FusedPipeline:
-    """The fused forward over a detector backend and a pose model, run
-    under `torch.inference_mode`; `program` is its `ServingProgram`."""
-
-    def __init__(self, config: PipelineConfig, detector_backend,
-                 pose: torch.nn.Module):
-        self.config = config
-        self.program = ServingProgram(config, detector_backend, pose)
-
-    @torch.inference_mode()
-    def forward(self, images, det_threshold, person_heights, orig_hw,
-                with_heatmaps: bool = False) -> PipelineOutputs:
-        return self.program.outputs(images, det_threshold, person_heights,
-                                    orig_hw, with_heatmaps)
-
-    @torch.inference_mode()
-    def forward_serving(self, images, det_threshold, person_heights,
-                        orig_hw) -> torch.Tensor:
-        """The packed [B, P, 23] rows (`pack_serving`)."""
-        return self.program(images, det_threshold, person_heights, orig_hw)

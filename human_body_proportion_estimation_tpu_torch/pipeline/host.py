@@ -49,13 +49,19 @@ from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
 from human_body_proportion_estimation_tpu_torch.ops import (
     proportions as prop_ops,
 )
+from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+    Mesh,
+    pad_to_shards,
+    replica,
+    to_shards,
+)
 from human_body_proportion_estimation_tpu_torch.pipeline.backends import (
     EfficientDetBackend,
     YoloBackend,
 )
 from human_body_proportion_estimation_tpu_torch.pipeline.full import (
-    FusedPipeline,
     PipelineOutputs,
+    ServingProgram,
 )
 from human_body_proportion_estimation_tpu_torch.utils.config import (
     PipelineConfig,
@@ -207,8 +213,17 @@ class InferencePipeline:
     pose), labelled "synthetic-certified" as the JAX server labels it;
     any other slot (EfficientDet-Lite0, YOLOv5, HRNet-W48, HigherHRNet:
     no weights for them are in the repository) is initialized at random
-    from a torch.Generator seeded with 0 (`models.layers.init_random`),
+    as flax's init with PRNGKey(0) does (`models.layers.init_random`),
     labelled "random", with the JAX package's loud warning.
+
+    `mesh`: a `parallel.mesh.Mesh` (`make_mesh`) to serve data-parallel
+    over its 'data' axis, as the JAX pipeline's `mesh=` does: the models
+    are built on the first shard's device and replicated once on every
+    other device of the mesh (`parallel.mesh.replica`; a device listed
+    twice shares one copy), a batch is padded to at least dp rows and a
+    multiple of dp, each shard of contiguous rows runs the whole serving
+    forward on its device (each kernel launches once per shard), and the
+    rows come back in order. `device` is then the first shard's device.
 
     `stages`: an optional `utils.profiling.StageTimer` (the serving edge
     attaches one) that `infer_serving` reports its stages to:
@@ -227,9 +242,13 @@ class InferencePipeline:
         pose_config: Optional[HRNetConfig] = None,
         dtype: torch.dtype = torch.bfloat16,
         detector: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.config = cfg = config or PipelineConfig()
         detector = detector or cfg.detector.name
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.data_devices[0]
         self.device = torch.device(device)
         torch.empty(0, device=self.device)  # an unusable device fails here
         if self.device.type == "cuda":
@@ -304,7 +323,15 @@ class InferencePipeline:
             )
         self.stages = None
         self.prewarmed = False
-        self.fused = FusedPipeline(cfg, self.backend, pose)
+        self.program = ServingProgram(cfg, self.backend, pose)
+
+    @property
+    def shard_programs(self) -> list:
+        """The serving program of each data shard (one without a mesh):
+        `program` replicated on the shard's device."""
+        if self.mesh is None:
+            return [self.program]
+        return [replica(self.program, d) for d in self.mesh.data_devices]
 
     def _stage(self, name: str):
         if self.stages is None:
@@ -312,15 +339,35 @@ class InferencePipeline:
         return self.stages.stage(name)
 
     def _prepare(self, images_rgb, person_heights, det_threshold):
+        """Host batch -> [per shard: (images, thresholds, heights,
+        orig_hw) on the shard's device], n."""
         with self._stage("host_prepare"):
             b = _pad_batch(len(images_rgb), self.config.serve.max_batch)
+            if self.mesh is not None:
+                b = pad_to_shards(b, self.mesh.shape["data"])
             *arrays, n = prepare_batch(
                 self.config, images_rgb, person_heights, det_threshold, b)
+        return self._upload(arrays), n
+
+    def _upload(self, arrays) -> List[list]:
         with self._stage("device_upload"):
-            args = [torch.from_numpy(a).to(self.device) for a in arrays]
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-        return args, n
+            return to_shards(arrays, [self.device] if self.mesh is None
+                             else self.mesh.data_devices)
+
+    def serving_rows(self, batch, thresholds, heights,
+                     orig_hw) -> np.ndarray:
+        """Packed [b, P, 23] rows of a prepared host batch (`prepare_batch`
+        arrays, b a multiple of the mesh's dp): every shard's forward,
+        then one readback each (`parallel.multihost` runs a process's
+        rows through this)."""
+        return self._serving(self._upload((batch, thresholds, heights,
+                                           orig_hw)))
+
+    @torch.inference_mode()
+    def _serving(self, shards) -> np.ndarray:
+        outs = [program(*args)
+                for program, args in zip(self.shard_programs, shards)]
+        return np.concatenate([o.cpu().numpy() for o in outs])
 
     def infer_serving(
         self,
@@ -330,9 +377,9 @@ class InferencePipeline:
     ) -> np.ndarray:
         """Lean serving path: one packed [n, P, 23] array
         (valid | lengths_cm x11 | seg_visible x11)."""
-        args, n = self._prepare(images_rgb, person_heights, det_threshold)
+        shards, n = self._prepare(images_rgb, person_heights, det_threshold)
         with self._stage("device_compute_readback"):
-            packed = self.fused.forward_serving(*args).cpu().numpy()
+            packed = self._serving(shards)
         return packed[:n]
 
     def infer_images(
@@ -344,10 +391,14 @@ class InferencePipeline:
     ) -> PipelineOutputs:
         """The fused forward on original-size RGB images; every output
         leaf comes back as a numpy array cut to the n real images."""
-        args, n = self._prepare(images_rgb, person_heights, det_threshold)
-        out = self.fused.forward(*args, with_heatmaps=with_heatmaps)
+        shards, n = self._prepare(images_rgb, person_heights, det_threshold)
+        with torch.inference_mode():
+            outs = [program.outputs(*args, with_heatmaps)
+                    for program, args in zip(self.shard_programs, shards)]
         return PipelineOutputs(*(
-            None if x is None else x.cpu().numpy()[:n] for x in out
+            None if parts[0] is None
+            else np.concatenate([x.cpu().numpy() for x in parts])[:n]
+            for parts in zip(*outs)
         ))
 
     def infer_bytes(

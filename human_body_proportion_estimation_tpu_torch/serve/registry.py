@@ -45,8 +45,9 @@ Design notes, as in the JAX package:
     takes the serving detector's config too). A YOLO model shares the
     serving pipeline's detector when that is the same YOLOv5 variant, and
     ``higherhrnet`` the pipeline's HigherHRNet pose when it has one; else
-    each is built at random from a seeded torch.Generator (no YOLO or
-    HigherHRNet weights are in the repository), labelled "random".
+    each is built at random, flax's init with PRNGKey(0)
+    (`models.layers.init_random`; no YOLO or HigherHRNet weights are in
+    the repository), labelled "random".
   * The no-detection fallback of `models/conv.py:72-79` (a single all-zero
     crop, so HRNet runs on zeros) is kept: invalid person slots are zeroed
     before the pose stage and `human_crops` / heatmaps have max(n, 1) rows.
@@ -131,6 +132,8 @@ class ModelEntry:
     _batcher: Optional[Any] = field(default=None, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
     batches_run: int = 0        # observability: device launches so far
+    # devices a coalesced batch is sharded over (`instance_group.count`)
+    dp: int = 1
 
     # -- per-model inference statistics (Triton get_inference_statistics
     # analog). Cumulative since process start, guarded by _stats_lock
@@ -374,9 +377,9 @@ class ModelRegistry:
         fetches beside metadata (`get_model_config`, reference
         triton_utils.py:27-31). Triton's conventions: `dims` EXCLUDE the
         batch dim when max_batch_size > 0; `instance_group.count` is the
-        number of devices a batch is sharded over (one: multi-device
-        serving is ROADMAP.md item 16); `dynamic_batching` carries the
-        deadline batcher's queue delay."""
+        number of devices a batch is sharded over (the mesh's dp for the
+        `hrnet`, `higherhrnet` and `yolov5*` runners, else 1);
+        `dynamic_batching` carries the deadline batcher's queue delay."""
         check_version(name, version)
         m = self._get(name)
 
@@ -400,7 +403,7 @@ class ModelRegistry:
             "version_policy": {"latest": {"num_versions": 1}},
             "input": _tensors(m.inputs),
             "output": _tensors(m.outputs),
-            "instance_group": [{"count": 1, "kind": "KIND_MODEL"}],
+            "instance_group": [{"count": m.dp, "kind": "KIND_MODEL"}],
         }
         if m.max_batch_size > 0:
             out["dynamic_batching"] = {
@@ -626,16 +629,19 @@ def _certified_fallback(slot: str, arch_ok: bool = True):
 
 def _standalone(make, state_loader, device):
     """A module the registry builds itself (`make()`): the certified
-    weights when `state_loader` is given, else torch's default
-    initialization from seed 0 (labelled "random" in the index); on
-    `device`, in eval mode."""
-    import torch
+    weights when `state_loader` is given, else flax's init with
+    PRNGKey(0) (`models.layers.init_random`, labelled "random" in the
+    index), as the JAX registry's `_init_on_cpu`; on `device`, in eval
+    mode."""
+    from human_body_proportion_estimation_tpu_torch.models.layers import (
+        init_random,
+    )
 
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        module = make()
+    module = make()
     if state_loader is not None:
         module.load_state_dict(state_loader(), strict=True)
+    else:
+        init_random(module)
     return module.to(device).eval()
 
 
@@ -649,11 +655,60 @@ def _to_device(arr: np.ndarray, device):
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
+def _pad_rows(n: int, cap: int, dp: int) -> int:
+    """The serving pipeline's power-of-two bucket, then at least dp rows
+    and a multiple of dp (JAX `registry._pad_rows`)."""
+    from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+        pad_to_shards,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        _pad_batch,
+    )
+
+    return pad_to_shards(_pad_batch(n, cap), dp)
+
+
+def _mesh_dp(mesh) -> int:
+    """The data-parallel degree an entry's runner shards over."""
+    return mesh.shape["data"] if mesh is not None else 1
+
+
+def _batched_runner(net, devices, max_batch: int, fn):
+    """A numpy runner over `net` replicated on `devices` (one per data
+    shard; `parallel.mesh.replica`): the rows padded to `_pad_rows`, cut
+    into len(devices) contiguous shards, `fn(net_on_device, x_on_device)`
+    -> {name: tensor} on each, the outputs concatenated in order and cut
+    back to the request's rows."""
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+        replica,
+        split_rows,
+    )
+
+    nets = [replica(net, d) for d in devices]
+
+    @torch.inference_mode()
+    def run(x: np.ndarray) -> Dict[str, np.ndarray]:
+        n = x.shape[0]
+        b = _pad_rows(n, max_batch, len(devices))
+        if b != n:
+            x = np.concatenate([x, np.zeros((b - n,) + x.shape[1:],
+                                            x.dtype)])
+        outs = [fn(m, _to_device(part, d)) for m, d, (part,) in zip(
+            nets, devices, split_rows([x], len(devices)))]
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])[:n]
+                for k in outs[0]}
+
+    return run
+
+
 def _hrnet_entry(cfg, device, pose=None,
-                 weights: str = "random") -> ModelEntry:
+                 weights: str = "random", mesh=None) -> ModelEntry:
     """`hrnet`: f32 NCHW crops -> "output" heatmaps [B, 17, 96, 72]
     (reference pose_est_hrnet_trtserver.py:22-25 reads "output"; NCHW is
-    the port's own layout, so nothing is transposed)."""
+    the port's own layout, so nothing is transposed). With `mesh` a batch
+    is sharded over its data devices (`_batched_runner`)."""
     ch, cw = cfg.pose.crop_height, cfg.pose.crop_width
     k = cfg.pose.num_keypoints
     max_batch = cfg.serve.max_batch
@@ -663,34 +718,20 @@ def _hrnet_entry(cfg, device, pose=None,
         if fallback is not None:
             weights = "synthetic-certified"
 
-    def build():
-        import torch
+    devices = [device] if mesh is None else mesh.data_devices
 
+    def build():
         from human_body_proportion_estimation_tpu_torch.models.hrnet import (
             create_hrnet,
-        )
-        from human_body_proportion_estimation_tpu_torch.pipeline.host import (
-            _pad_batch,
         )
 
         model = pose
         if model is None:
             model = _standalone(lambda: create_hrnet(cfg.pose.name),
-                                fallback, device)
-
-        @torch.inference_mode()
-        def run(inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-            x = inputs["input"]
-            n = x.shape[0]
-            b = _pad_batch(n, max_batch)  # the serving pipeline's buckets
-            if b != n:
-                x = np.concatenate(
-                    [x, np.zeros((b - n,) + x.shape[1:], x.dtype)]
-                )
-            out = model(_to_device(x, device)).float().cpu().numpy()
-            return {"output": out[:n]}
-
-        return run
+                                fallback, devices[0])
+        run = _batched_runner(model, devices, max_batch,
+                              lambda m, x: {"output": m(x).float()})
+        return lambda inputs: run(inputs["input"])
 
     return ModelEntry(
         name="hrnet",
@@ -702,19 +743,20 @@ def _hrnet_entry(cfg, device, pose=None,
         weights=weights,
         build=build,
         batch_timeout_ms=cfg.serve.batch_timeout_ms,
+        dp=_mesh_dp(mesh),
     )
 
 
 def _higherhrnet_entry(cfg, device, model=None,
-                       weights: str = "random") -> ModelEntry:
+                       weights: str = "random", mesh=None) -> ModelEntry:
     """`higherhrnet`: f32 NCHW image of any size -> "output_1" (K heatmaps +
     K AE tags, 1/4 res) and "output_2" (K heatmaps, 1/2 res), the tensor
     contract the reference reads (pose_est_hrnet_trtserver.py:22-28 uses
     output_2). `model`: the serving pipeline's HigherHRNet (the bottom-up
     pipeline's model, or a HigherHRNet pose slot's); else the entry builds
     its own at its first load: the certified bottom-up checkpoint where the
-    repository holds it, as in the JAX registry, else at random from a
-    seeded torch.Generator (`models.layers.init_random`). Rows are padded
+    repository holds it, as in the JAX registry, else at random, flax's
+    init with PRNGKey(0) (`models.layers.init_random`). Rows are padded
     to the launch bucket as the `hrnet` entry pads them."""
     k = cfg.pose.num_keypoints
     max_batch = cfg.serve.max_batch
@@ -724,39 +766,25 @@ def _higherhrnet_entry(cfg, device, model=None,
         if fallback is not None:
             weights = "synthetic-certified"
 
-    def build():
-        import torch
+    devices = [device] if mesh is None else mesh.data_devices
 
+    def build():
         from human_body_proportion_estimation_tpu_torch.models.higherhrnet import (  # noqa: E501
             HigherHRNet,
         )
         from human_body_proportion_estimation_tpu_torch.models.layers import (
             init_random,
         )
-        from human_body_proportion_estimation_tpu_torch.pipeline.host import (
-            _pad_batch,
-        )
 
         net = model
         if net is None and fallback is not None:
-            net = _standalone(HigherHRNet, fallback, device)
+            net = _standalone(HigherHRNet, fallback, devices[0])
         elif net is None:
-            net = init_random(HigherHRNet()).to(device).eval()
-
-        @torch.inference_mode()
-        def run(inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-            x = inputs["input"]
-            n = x.shape[0]
-            b = _pad_batch(n, max_batch)  # the serving pipeline's buckets
-            if b != n:
-                x = np.concatenate(
-                    [x, np.zeros((b - n,) + x.shape[1:], x.dtype)]
-                )
-            out = net(_to_device(x, device))
-            return {name: out[name][:n].cpu().numpy()
-                    for name in ("output_1", "output_2")}
-
-        return run
+            net = init_random(HigherHRNet()).to(devices[0]).eval()
+        run = _batched_runner(net, devices, max_batch, lambda m, x: {
+            name: out for name, out in m(x).items()
+            if name in ("output_1", "output_2")})
+        return lambda inputs: run(inputs["input"])
 
     return ModelEntry(
         name="higherhrnet",
@@ -770,11 +798,12 @@ def _higherhrnet_entry(cfg, device, model=None,
         weights=weights,
         build=build,
         batch_timeout_ms=cfg.serve.batch_timeout_ms,
+        dp=_mesh_dp(mesh),
     )
 
 
 def _yolo_entry(cfg, device, variant: str, model=None,
-                weights: str = "random") -> ModelEntry:
+                weights: str = "random", mesh=None) -> ModelEntry:
     """`yolov5m` / `yolov5s`: "images" f32 NCHW [B, 3, 640, 640] (already
     /255, reference obj_det_yolov5_trtserver.py:30-37) -> "output"
     [B, 25200, 85] decoded predictions (the layout its postprocess reads,
@@ -784,37 +813,23 @@ def _yolo_entry(cfg, device, variant: str, model=None,
     size = 640
     max_batch = cfg.serve.max_batch
 
-    def build():
-        import torch
+    devices = [device] if mesh is None else mesh.data_devices
 
+    def build():
         from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
             VARIANTS,
             YoloV5,
             decode_predictions,
             init_random,
         )
-        from human_body_proportion_estimation_tpu_torch.pipeline.host import (
-            _pad_batch,
-        )
 
         net = model
         if net is None:
-            net = init_random(YoloV5(VARIANTS[variant])).to(device).eval()
-
-        @torch.inference_mode()
-        def run(inputs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-            x = inputs["images"]
-            n = x.shape[0]
-            b = _pad_batch(n, max_batch)  # the serving pipeline's buckets
-            if b != n:
-                x = np.concatenate(
-                    [x, np.zeros((b - n,) + x.shape[1:], x.dtype)]
-                )
-            out = decode_predictions(net(_to_device(x, device)),
-                                     net.config.num_classes)
-            return {"output": out[:n].cpu().numpy()}
-
-        return run
+            net = init_random(YoloV5(VARIANTS[variant])).to(
+                devices[0]).eval()
+        run = _batched_runner(net, devices, max_batch, lambda m, x: {
+            "output": decode_predictions(m(x), m.config.num_classes)})
+        return lambda inputs: run(inputs["images"])
 
     n_pred = sum((size // s) ** 2 * 3 for s in (8, 16, 32))  # 25200
     return ModelEntry(
@@ -826,6 +841,7 @@ def _yolo_entry(cfg, device, variant: str, model=None,
         weights=weights,
         build=build,
         batch_timeout_ms=cfg.serve.batch_timeout_ms,
+        dp=_mesh_dp(mesh),
     )
 
 
@@ -1096,7 +1112,7 @@ def _edet_entries(cfg, det_config, device, detector=None, pose=None,
     return entries
 
 
-def build_registry(pipeline=None, device=None) -> ModelRegistry:
+def build_registry(pipeline=None, device=None, mesh=None) -> ModelRegistry:
     """The default repository (the reference's model-repo roster, README
     :71-80, less the models of the slots not ported yet), sharing the
     serving pipeline's pose model and detector when given, so that
@@ -1112,6 +1128,10 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
 
     The configuration is the pipeline's, else the default one. `device`:
     where the runners run; the pipeline's device by default, else CUDA.
+    `mesh` (the pipeline's by default, as in JAX): the `hrnet`,
+    `higherhrnet` and `yolov5*` runners shard each coalesced batch over
+    its data devices, and report its dp as `instance_group.count`; the
+    EfficientDet models run on the first one, as JAX's are unsharded.
     """
     import torch
 
@@ -1142,6 +1162,10 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
     det_config = EFFICIENTDET_LITE4
     det_weights = pose_weights = higher_weights = "random"
     yolo: Dict[str, Tuple[Any, str]] = {}
+    if mesh is None:
+        mesh = getattr(pipeline, "mesh", None)
+    if mesh is not None:
+        device = device or mesh.data_devices[0]
     if pipeline is not None:
         cfg = pipeline.config
         origin = pipeline.weights_origin
@@ -1168,10 +1192,12 @@ def build_registry(pipeline=None, device=None) -> ModelRegistry:
 
     reg = ModelRegistry()
     for e in (
-        _hrnet_entry(cfg, device, pose, pose_weights),
-        _higherhrnet_entry(cfg, device, higher, higher_weights),
-        _yolo_entry(cfg, device, "yolov5m", *yolo.get("yolov5m", ())),
-        _yolo_entry(cfg, device, "yolov5s", *yolo.get("yolov5s", ())),
+        _hrnet_entry(cfg, device, pose, pose_weights, mesh=mesh),
+        _higherhrnet_entry(cfg, device, higher, higher_weights, mesh=mesh),
+        _yolo_entry(cfg, device, "yolov5m", *yolo.get("yolov5m", ()),
+                    mesh=mesh),
+        _yolo_entry(cfg, device, "yolov5s", *yolo.get("yolov5s", ()),
+                    mesh=mesh),
         *_edet_entries(cfg, det_config, device, det, pose,
                        det_weights=det_weights, pose_weights=pose_weights),
     ):

@@ -891,7 +891,6 @@ def create_server(app: ServingApp, host: str, port: int) -> ThreadingHTTPServer:
 # options of the JAX server that the port does not serve yet, and the
 # ROADMAP.md item that brings each
 _NOT_YET = (
-    ("data_parallel", "--data-parallel", "item 16 (multi-device serving)"),
     ("checkpoint_dir", "--checkpoint-dir", "item 17 (importers: orbax "
                                            "checkpoints)"),
 )
@@ -928,8 +927,9 @@ def build_parser() -> argparse.ArgumentParser:
              "cli.export_artifact) instead of building models; overrides "
              "--detector and --bottom-up")
     parser.add_argument("--data-parallel", type=int, default=0,
-                        help="shard serving batches over N devices (not "
-                             "ported yet: N > 1 exits)")
+                        help="shard serving batches over N CUDA devices "
+                             "(parallel.mesh.make_mesh; N <= 1: one "
+                             "device)")
     parser.add_argument(
         "--prewarm", action="store_true",
         help="run the serving forward at every batch bucket before "
@@ -947,8 +947,7 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     for attr, flag, item in _NOT_YET:
-        value = getattr(args, attr)
-        if value and not (attr == "data_parallel" and value <= 1):
+        if getattr(args, attr):
             parser.error(f"{flag} is not ported yet: ROADMAP.md {item}")
     # --bottom-up and --artifact-dir never read --detector (the JAX server
     # returns before it does), so the default ssd_mobilenet serves them
@@ -970,24 +969,38 @@ def main(argv=None):
                          f"cannot start ({e}); pass --grpc-port 0 to serve "
                          "HTTP alone")
 
+    mesh = None
+    if args.data_parallel > 1:
+        # before any model is built, as the other option checks
+        from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+            make_mesh,
+        )
+
+        try:
+            mesh = make_mesh(args.data_parallel)
+        except ValueError as e:
+            parser.error(f"--data-parallel {args.data_parallel}: {e}")
+
     log.info("compile_cache", directory=compile_cache.apply_flags(args))
 
     if args.artifact_dir:
-        _serve(args, build_artifact_pipeline(args.artifact_dir))
+        _serve(args, build_artifact_pipeline(args.artifact_dir, mesh))
         return
-    _serve(args, build_bottomup_pipeline() if args.bottom_up
-           else build_pipeline(args))
+    _serve(args, build_bottomup_pipeline(mesh) if args.bottom_up
+           else build_pipeline(args, mesh))
 
 
-def build_artifact_pipeline(directory: str):
-    """`--artifact-dir`: the exported program restored on the GPU
-    (`pipeline.export.ArtifactPipeline`; no model is built), with the JAX
-    server's warning when no slot carries real weights."""
+def build_artifact_pipeline(directory: str, mesh=None):
+    """`--artifact-dir`: the exported program restored on the GPU, or on
+    each device of `mesh` (`pipeline.export.ArtifactPipeline`; no model is
+    built), with the JAX server's warning when no slot carries real
+    weights."""
     from human_body_proportion_estimation_tpu_torch.pipeline.export import (
         ArtifactPipeline,
     )
 
-    pipeline = ArtifactPipeline(directory, device="cuda")
+    pipeline = ArtifactPipeline(directory, device="cuda", **(
+        {} if mesh is None else {"mesh": mesh}))
     if "real" not in pipeline.weights_origin.values():
         print(
             "WARNING: artifact carries no real-weight slot "
@@ -998,9 +1011,9 @@ def build_artifact_pipeline(directory: str):
     return pipeline
 
 
-def build_bottomup_pipeline():
-    """The `--bottom-up` pipeline on the GPU (`pipeline.bottomup.
-    build_default`), announced as the JAX server announces it: the
+def build_bottomup_pipeline(mesh=None):
+    """The `--bottom-up` pipeline on the GPU, or over `mesh`
+    (`pipeline.bottomup.build_default`), announced as the JAX server announces it: the
     certified bottom-up checkpoint's path, or a loud warning at random."""
     from human_body_proportion_estimation_tpu_torch.models.weights import (
         default_certified_bottomup_checkpoint,
@@ -1009,7 +1022,7 @@ def build_bottomup_pipeline():
         build_default,
     )
 
-    pipeline = build_default(device="cuda")
+    pipeline = build_default(device="cuda", mesh=mesh)
     if pipeline.weights_origin["pose"] == "synthetic-certified":
         print("serving committed synthetic-certified bottom-up weights "
               f"({default_certified_bottomup_checkpoint()})", flush=True)
@@ -1020,15 +1033,17 @@ def build_bottomup_pipeline():
     return pipeline
 
 
-def build_pipeline(args) -> InferencePipeline:
-    """The serving pipeline of `main`, on the GPU, announced as the JAX
-    server announces it (the certified checkpoint's slots, and a loud
-    warning for slots at random)."""
+def build_pipeline(args, mesh=None) -> InferencePipeline:
+    """The serving pipeline of `main`, on the GPU or over `mesh`
+    (`--data-parallel`), announced as the JAX server announces it (the
+    certified checkpoint's slots, and a loud warning for slots at
+    random)."""
     from human_body_proportion_estimation_tpu_torch.models.weights import (
         default_certified_checkpoint,
     )
 
-    pipeline = InferencePipeline(device="cuda", detector=args.detector)
+    pipeline = InferencePipeline(device="cuda", detector=args.detector,
+                                 mesh=mesh)
     origin = pipeline.weights_origin
     certified = [k for k, v in origin.items() if v == "synthetic-certified"]
     print("serving committed synthetic-certified weights for "

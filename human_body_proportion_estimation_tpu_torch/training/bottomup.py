@@ -11,8 +11,8 @@ associative-embedding grouping loss (port of the JAX package's
     the 1/4-res "output_1" heatmap half, and the AE loss on the "output_1"
     tag half, one optimizer step.
 
-NCHW throughout (JAX: NHWC). `make_sharded_bottomup_step` is ROADMAP.md
-item 16.
+NCHW throughout (JAX: NHWC). `make_sharded_bottomup_step` runs the step
+over a mesh of processes (`training/sharded.py`).
 """
 
 from __future__ import annotations
@@ -119,7 +119,23 @@ def bottomup_train_step(
     return state, loss.detach()
 
 
-def make_sharded_bottomup_step(*args, **kwargs):
-    raise NotImplementedError(
-        "make_sharded_bottomup_step (a dp x tp mesh) is not ported yet: "
-        "ROADMAP.md item 16")
+def make_sharded_bottomup_step(state: PoseTrainState, mesh):
+    """`bottomup_train_step` over a ("data", "model") mesh of processes
+    (`training/sharded.py`): returns (step, sharded state); `step(sstate,
+    images, keypoints, visible, ae_weight=1e-3, fg_weight=0.0)` takes the
+    GLOBAL batch in every rank and returns (sstate, the global loss)."""
+    from human_body_proportion_estimation_tpu_torch.training.sharded import (
+        apply_sharded_updates,
+        shard_state,
+    )
+
+    def step(sstate, images, keypoints, visible, ae_weight: float = 1e-3,
+             fg_weight: float = 0.0):
+        images, keypoints, visible = sstate.rows(images, keypoints, visible)
+        sstate.model.train()
+        with sstate.batch_statistics():
+            loss = bottomup_loss(sstate.model(images), keypoints, visible,
+                                 ae_weight, fg_weight)
+        return sstate, apply_sharded_updates(sstate, loss)
+
+    return step, shard_state(state, mesh)

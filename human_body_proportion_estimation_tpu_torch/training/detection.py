@@ -15,7 +15,8 @@ the first index (over a uint8 cast of the bool hit matrix, which torch's
 `argmax` refuses as bool), and masks multiply, so a NaN or inf poisons a
 sum as it does in JAX. The train step runs the detector's canonical head
 (`EfficientDet.forward(all_classes=True)`, flax `train=True`), never the
-head-score kernel. `make_sharded_det_train_step` is ROADMAP.md item 16.
+head-score kernel. `make_sharded_det_train_step` runs it over a mesh of
+processes (`training/sharded.py`).
 """
 
 from __future__ import annotations
@@ -58,31 +59,31 @@ class DetTrainState(PoseTrainState):
 
 def create_det_train_state(
     model: nn.Module,
-    generator: Optional[torch.Generator],
+    seed: Optional[int],
     learning_rate: float = 1e-3,
     total_steps: int | None = None,
     warmup_steps: int = 0,
     clip_norm: float = 0.0,
 ) -> DetTrainState:
-    """Init the detector as flax's `init` does, from `generator`, with the
+    """Init the detector as flax's `init` does with `PRNGKey(seed)`, with the
     class head's prediction bias at the focal prior log(0.01 / 0.99) (with
     a zero bias every anchor starts at p = 0.5 and the first epochs go to
-    suppressing background), and give it Adam. `generator` None keeps the
+    suppressing background), and give it Adam. `seed` None keeps the
     weights the model has, bias included. `total_steps` switches to warmup
     + cosine decay; `clip_norm` > 0 clips the gradients' global norm
     first."""
-    if generator is not None:
-        init_det_flax(model, generator)
+    if seed is not None:
+        init_det_flax(model, seed)
     pose_state = create_train_state(model, None, learning_rate,
                                     total_steps, warmup_steps)
     return DetTrainState(**vars(pose_state), clip_norm=clip_norm)
 
 
-def init_det_flax(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """flax's default init of the detector from `generator`
+def init_det_flax(model: nn.Module, seed: int) -> nn.Module:
+    """flax's default init of the detector with `PRNGKey(seed)`
     (`models.layers.init_flax_default`), then the class head's prediction
     bias at the focal prior (detection.py:69-72)."""
-    init_flax_default(model, generator)
+    init_flax_default(model, seed)
     head = getattr(getattr(model, "class_net", None), "predict_pw", None)
     if head is not None and head.bias is not None:
         with torch.no_grad():
@@ -208,6 +209,23 @@ def detection_loss(
     return torch.mean((cls_l + box_loss_weight * box_l / 4.0) / n_pos)
 
 
+def _det_loss(state, images: torch.Tensor, gt_boxes, gt_classes,
+              gt_valid) -> torch.Tensor:
+    """The detection loss of `state.model` (in train mode) on a batch, the
+    anchors of the images' size made once on their device."""
+    model = state.model
+    cfg = model.config
+    hw = (images.shape[1], images.shape[2])
+    if hw not in state.anchors:
+        state.anchors[hw] = torch.from_numpy(
+            generate_anchors(cfg.anchors, *hw)).to(images.device)
+    model.train()
+    cls_logits, box_regs = model(images, all_classes=True)
+    return detection_loss(
+        cls_logits.float(), box_regs.float(), state.anchors[hw], gt_boxes,
+        gt_classes, gt_valid, cfg.num_classes)
+
+
 def train_step(
     state: DetTrainState,
     images: torch.Tensor,      # [B, H, W, 3] uint8
@@ -216,24 +234,26 @@ def train_step(
     gt_valid: torch.Tensor,    # [B, G] bool
 ):
     """One optimizer step; returns (state, loss) with the loss detached."""
-    model = state.model
-    cfg = model.config
-    hw = (images.shape[1], images.shape[2])
-    if hw not in state.anchors:
-        state.anchors[hw] = torch.from_numpy(
-            generate_anchors(cfg.anchors, *hw)).to(images.device)
-    anchors = state.anchors[hw]
-    model.train()
-    cls_logits, box_regs = model(images, all_classes=True)
-    loss = detection_loss(
-        cls_logits.float(), box_regs.float(), anchors, gt_boxes, gt_classes,
-        gt_valid, cfg.num_classes)
+    loss = _det_loss(state, images, gt_boxes, gt_classes, gt_valid)
     apply_updates(state, loss, state.clip_norm)
     return state, loss.detach()
 
 
-def make_sharded_det_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "make_sharded_det_train_step (a dp x tp mesh) is not ported yet: "
-        "ROADMAP.md item 16")
+def make_sharded_det_train_step(state: DetTrainState, mesh):
+    """`train_step` over a ("data", "model") mesh of processes
+    (`training/sharded.py`, the state's clip included): returns (step,
+    sharded state); `step(sstate, images, gt_boxes, gt_classes,
+    gt_valid)` takes the GLOBAL batch in every rank and returns (sstate,
+    the global loss)."""
+    from human_body_proportion_estimation_tpu_torch.training.sharded import (
+        apply_sharded_updates,
+        shard_state,
+    )
 
+    def step(sstate, images, gt_boxes, gt_classes, gt_valid):
+        rows = sstate.rows(images, gt_boxes, gt_classes, gt_valid)
+        with sstate.batch_statistics():
+            loss = _det_loss(sstate, *rows)
+        return sstate, apply_sharded_updates(sstate, loss)
+
+    return step, shard_state(state, mesh)

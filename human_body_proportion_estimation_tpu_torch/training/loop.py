@@ -5,8 +5,10 @@ Pulls augmented batches from `training/data`, builds heatmap targets,
 drives `trainer.train_step` on the model's device, logs losses, and
 checkpoints through `models/weights.save_training_checkpoint` (an f32
 `.npz` of `{params, batch_stats, step}` per checkpoint, in place of the
-JAX package's Orbax directory). `mesh=` (the dp x tp sharded step) is
-ROADMAP.md item 16.
+JAX package's Orbax directory). `mesh=` trains with the sharded step over
+a dp x tp mesh of processes (`trainer.make_sharded_train_step`): every
+process draws the same batches and takes its rows, and process 0 writes
+the checkpoints.
 """
 
 from __future__ import annotations
@@ -47,14 +49,16 @@ def train_pose(
     augment: bool = True,
 ):
     """Train a pose model from flax's default init (drawn from `seed`) on
-    the device it lives on; returns (train state, per-step losses)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_pose(mesh=...) is not ported yet: ROADMAP.md item 16")
+    the device it lives on, or over `mesh` (a `parallel.mesh.Mesh` of
+    processes); returns (train state, per-step losses)."""
     h, w = crop_hw
+    state = trainer_lib.create_train_state(model, seed, learning_rate)
+    step_fn = trainer_lib.train_step
+    writer = True
+    if mesh is not None:
+        step_fn, state = trainer_lib.make_sharded_train_step(state, mesh)
+        writer = state.cell == (0, 0)
     device = next(model.parameters()).device
-    state = trainer_lib.create_train_state(
-        model, torch.Generator().manual_seed(seed), learning_rate)
 
     hm_h, hm_w = h // 4, w // 4
     batches = data_lib.batch_iterator(
@@ -68,7 +72,7 @@ def train_pose(
             torch.from_numpy(kp_hm).to(device),
             torch.from_numpy(visible).to(device), hm_h, hm_w)
         images = torch.from_numpy(images).to(device).permute(0, 3, 1, 2)
-        state, loss = trainer_lib.train_step(state, images, targets)
+        state, loss = step_fn(state, images, targets)
         losses.append(float(loss))
         if step % log_every == 0:
             rate = log_every * batch_size / (time.perf_counter() - t0)
@@ -76,9 +80,9 @@ def train_pose(
                      loss=float(np.mean(losses[-log_every:])),
                      imgs_per_sec=round(rate, 2))
             t0 = time.perf_counter()
-        if checkpoint_dir and step % checkpoint_every == 0:
+        if checkpoint_dir and writer and step % checkpoint_every == 0:
             _save(checkpoint_dir, state, step)
-    if checkpoint_dir:
+    if checkpoint_dir and writer:
         _save(checkpoint_dir, state, steps)
     return state, losses
 

@@ -19,8 +19,8 @@ the JAX package's pure functions:
     `optimizer.step()` does the same because the lambda is 0 at 0.
 
 Tensors are NCHW, the port's layout: heatmaps and targets [B, K, H, W]
-(JAX: NHWC, trainer.py:80). `make_sharded_train_step` (the dp x tp mesh)
-is ROADMAP.md item 16.
+(JAX: NHWC, trainer.py:80). `make_sharded_train_step` runs the step over
+a dp x tp mesh of processes (`training/sharded.py`).
 """
 
 from __future__ import annotations
@@ -84,19 +84,19 @@ def make_optimizer(model: nn.Module, learning_rate: float,
 
 def create_train_state(
     model: nn.Module,
-    generator: Optional[torch.Generator],
+    seed: Optional[int],
     learning_rate: float = 1e-3,
     total_steps: int | None = None,
     warmup_steps: int = 0,
 ) -> PoseTrainState:
-    """Init `model` as flax's `init` does, from `generator`
+    """Init `model` as flax's `init` does with `PRNGKey(seed)`
     (`models.layers.init_flax_default`; None keeps the weights it has, to
     fine-tune), and give it Adam. `total_steps` switches the constant rate
     to linear warmup + cosine decay over the run, the HRNet fine-tune
     schedule. The JAX `input_shape` argument is gone: a torch module has
     its parameters from construction."""
-    if generator is not None:
-        init_flax_default(model, generator)
+    if seed is not None:
+        init_flax_default(model, seed)
     optimizer, scheduler = make_optimizer(model, learning_rate, total_steps,
                                           warmup_steps)
     return PoseTrainState(model, optimizer, scheduler)
@@ -151,6 +151,24 @@ def clip_by_global_norm(parameters, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def pose_loss(
+    model: nn.Module,
+    images: torch.Tensor,      # [B, 3, H, W] float in [0, 1]
+    targets: torch.Tensor,     # [B, K, H/4, W/4]
+    target_weight: torch.Tensor | None = None,  # [B, K] visibility weights
+    fg_weight: float = 0.0,
+) -> torch.Tensor:
+    """The peak-weighted heatmap MSE of `model` on a batch (its mean over
+    the batch, keypoints and pixels)."""
+    out = model(images)
+    err = (out - targets) ** 2
+    if fg_weight:
+        err = err * (1.0 + fg_weight * targets)
+    if target_weight is not None:
+        err = err * target_weight[:, :, None, None]
+    return torch.mean(err)
+
+
 def train_step(
     state: PoseTrainState,
     images: torch.Tensor,      # [B, 3, H, W] float in [0, 1]
@@ -167,18 +185,29 @@ def train_step(
     (up to 0.46, `person_det_pose_edet4_trtserver.py:162-163`).
     """
     state.model.train()
-    out = state.model(images)
-    err = (out - targets) ** 2
-    if fg_weight:
-        err = err * (1.0 + fg_weight * targets)
-    if target_weight is not None:
-        err = err * target_weight[:, :, None, None]
-    loss = torch.mean(err)
+    loss = pose_loss(state.model, images, targets, target_weight, fg_weight)
     apply_updates(state, loss)
     return state, loss.detach()
 
 
-def make_sharded_train_step(*args, **kwargs):
-    raise NotImplementedError(
-        "make_sharded_train_step (a dp x tp mesh) is not ported yet: "
-        "ROADMAP.md item 16")
+def make_sharded_train_step(state: PoseTrainState, mesh):
+    """`train_step` over a ("data", "model") mesh of processes
+    (`training/sharded.py`): returns (step, sharded state); `step(sstate,
+    images, targets, target_weight=None, fg_weight=0.0)` takes the GLOBAL
+    batch in every rank and returns (sstate, the global loss), the
+    one-process step's math."""
+    from human_body_proportion_estimation_tpu_torch.training.sharded import (
+        apply_sharded_updates,
+        shard_state,
+    )
+
+    def step(sstate, images, targets, target_weight=None, fg_weight=0.0):
+        rows = sstate.rows(images, targets, *(
+            () if target_weight is None else (target_weight,)))
+        sstate.model.train()
+        with sstate.batch_statistics():
+            loss = pose_loss(sstate.model, rows[0], rows[1],
+                             rows[2] if len(rows) > 2 else None, fg_weight)
+        return sstate, apply_sharded_updates(sstate, loss)
+
+    return step, shard_state(state, mesh)

@@ -107,7 +107,10 @@ class JsonLogger:
                  stream: TextIO | None = None):
         self.name = name
         self._level = _LEVELS[level]
-        self._stream = stream or sys.stderr
+        # None: the process's stderr at each write (a logger made while
+        # sys.stderr was swapped, e.g. by a test's capture, must not keep
+        # writing to the old stream)
+        self._stream = stream
         self._lock = threading.Lock()
 
     def _emit(self, level: str, event: str, **fields: Any):
@@ -132,7 +135,7 @@ class JsonLogger:
         # try/except: logging must never take down a serving thread.
         try:
             with _SETTINGS_LOCK:
-                stream = _log_file_stream or self._stream
+                stream = _log_file_stream or self._stream or sys.stderr
                 stream.write(line + "\n")
                 stream.flush()
         except (OSError, ValueError):

@@ -102,7 +102,7 @@ def train_pose(kind: str, seed: int, steps: int, log,
         tree, _ = weights.load_training_checkpoint(init_from)
         model.load_state_dict(weights.flax_to_state_dict(tree))
     else:
-        init_flax_default(model, torch.Generator().manual_seed(seed))
+        init_flax_default(model, seed)
     t0 = time.perf_counter()
     state, losses = C.train_pose_resident(
         model, crops, kp_hm, vis, steps=steps, batch=16,

@@ -254,7 +254,8 @@ def test_forward_serving_and_infer_serving_match_jax(pipelines):
 
 def test_weights_rules(monkeypatch, tmp_path, caplog):
     """No state: the HigherHRNet is random from the seeded generator (the
-    same twice), labelled "random" with the warning; a mesh names item 16;
+    same twice), labelled "random" with the warning; a mesh of the CPU
+    listed twice shares the one model between its two shards;
     `maybe_load_certified(bottom_up=True)` follows the JAX rule: None
     under HBPE_DISABLE_CERTIFIED_FALLBACK or without the file, else the
     file's pose slot as a port state dict (no detector slot) equal to the
@@ -270,8 +271,14 @@ def test_weights_rules(monkeypatch, tmp_path, caplog):
     for (k0, a), (k1, b) in zip(pipes[0].model.state_dict().items(),
                                 pipes[1].model.state_dict().items()):
         assert k0 == k1 and torch.equal(a, b), k0
-    with pytest.raises(NotImplementedError, match="item 16"):
-        BottomUpPipeline(model=port_tiny_model(), device="cpu", mesh=object())
+    from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+
+    sharded = BottomUpPipeline(model=port_tiny_model(), dtype=torch.float32,
+                               mesh=make_mesh(devices=["cpu", "cpu"]))
+    assert sharded.shard_models == [sharded.model] * 2
+    assert sharded.device == torch.device("cpu")
 
     assert tw.maybe_load_certified(bottom_up=True) == (None, None)
     monkeypatch.delenv("HBPE_DISABLE_CERTIFIED_FALLBACK")

@@ -13,8 +13,10 @@ values to 1e-3; the hbpe gRPC Estimate of the
 port against its own file route; the registry's `higherhrnet` runs the
 pipeline's module (the JAX registry shares a bottom-up pipeline's too);
 and the server's flag matrix: `--bottom-up` with the default detector
-(`ssd_mobilenet`) serves, with `--checkpoint-dir`, `--data-parallel 2` or
-`--artifact-dir` it exits 2 naming the ROADMAP item.
+(`ssd_mobilenet`) serves, with `--checkpoint-dir` it exits 2 naming the
+ROADMAP item, with `--data-parallel 2` (alone or beside `--artifact-dir`)
+it exits 2 naming the CUDA devices it lacks (tests/conftest.py hides
+every GPU).
 """
 
 import json
@@ -273,8 +275,9 @@ def test_bottom_up_serves_with_the_default_detector(certified, monkeypatch,
 
 @pytest.mark.parametrize("extra,item", [
     (["--checkpoint-dir", "x"], "item 17"),
-    (["--data-parallel", "2"], "item 16"),
-    (["--artifact-dir", "x", "--data-parallel", "2"], "item 16"),
+    (["--data-parallel", "2"], "--data-parallel 2: 2 devices asked for"),
+    (["--artifact-dir", "x", "--data-parallel", "2"],
+     "--data-parallel 2: 2 devices asked for"),
 ])
 def test_bottom_up_exits_on_options_not_ported(extra, item, monkeypatch,
                                                capsys):
@@ -285,4 +288,8 @@ def test_bottom_up_exits_on_options_not_ported(extra, item, monkeypatch,
     with pytest.raises(SystemExit) as exc:
         tserver.main(["--bottom-up", *extra])
     assert exc.value.code == 2
-    assert f"ROADMAP.md {item}" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    # item 17 is not ported yet; --data-parallel is (item 16), and this
+    # machine has fewer than the two CUDA devices it asks for
+    assert (f"ROADMAP.md {item}" if item.startswith("item") else item) \
+        in err

@@ -68,7 +68,7 @@ def one_torch_thread():
 
 def random_state(model, seed):
     """`model` at flax's init from `seed`, with random BN statistics."""
-    init_flax_default(model, torch.Generator().manual_seed(seed))
+    init_flax_default(model, seed)
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in model.modules():
@@ -150,7 +150,7 @@ def test_head_score_cache_refreshes_after_a_train_step():
     forward after training scores with the trained weights."""
     model = tedet.EfficientDet(_port_edet_config(tiny_edet_config()),
                                dtype=torch.float32)
-    state = D.create_det_train_state(model, torch.Generator().manual_seed(0),
+    state = D.create_det_train_state(model, 0,
                                      learning_rate=1e-2)
     images = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (2, 128, 128, 3), dtype=np.uint8))

@@ -275,8 +275,17 @@ def test_artifact_refuses_another_device_type(artifact_dir, tmp_path):
 
 
 def test_mesh_is_not_ported_yet(artifact_dir):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ArtifactPipeline(artifact_dir, mesh=object(), device="cpu")
+    """A mesh is ported now (item 16): over a mesh of the CPU listed
+    twice, one call takes the batch of both shards, and one program serves
+    both (tests/test_torch_port_sharded_serving.py holds the rows)."""
+    from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+
+    sharded = ArtifactPipeline(artifact_dir,
+                               mesh=make_mesh(devices=["cpu", "cpu"]))
+    assert sharded.artifact.effective_batch == 2 * BATCH
+    assert len({id(p) for p, _ in sharded.artifact.shards}) == 1
 
 
 def test_registry_beside_an_artifact_matches_jax(restored):
@@ -409,7 +418,7 @@ def test_export_cli_writes_an_artifact(models, tmp_path, monkeypatch,
         calls.append(kw)
         return types.SimpleNamespace(
             config=models.tcfg, device=torch.device("cpu"),
-            fused=models.tpipe.fused,
+            program=models.tpipe.program,
             weights_origin={"detector": "random", "pose": "real"})
 
     monkeypatch.setattr(host, "InferencePipeline", stand_in)
@@ -435,14 +444,17 @@ def test_export_cli_writes_an_artifact(models, tmp_path, monkeypatch,
 
 
 def test_server_artifact_dir_with_data_parallel_exits(artifact_dir, capsys):
+    """`--data-parallel 2` is ported (item 16); with fewer than two CUDA
+    devices (tests/conftest.py hides every GPU) it exits 2 naming them, before the artifact is
+    restored."""
     from human_body_proportion_estimation_tpu_torch.serve import server
 
     with pytest.raises(SystemExit) as exc:
         server.main(["--artifact-dir", artifact_dir, "--data-parallel", "2",
                      "--grpc-port", "0"])
     assert exc.value.code == 2
-    assert "ROADMAP.md item 16 (multi-device serving)" in \
-        capsys.readouterr().err
+    assert ("--data-parallel 2: 2 devices asked for, 0 CUDA devices "
+            "available") in capsys.readouterr().err
 
 
 def test_server_artifact_dir_builds_the_artifact_pipeline(artifact_dir,

@@ -31,7 +31,7 @@ def test_yolo_backend_export_restore_matches_live(tmp_path):
         YoloBackend,
     )
     from human_body_proportion_estimation_tpu_torch.pipeline.full import (
-        FusedPipeline,
+        ServingProgram,
     )
     from human_body_proportion_estimation_tpu_torch.pipeline.host import (
         InferencePipeline,
@@ -59,7 +59,7 @@ def test_yolo_backend_export_restore_matches_live(tmp_path):
                              detector="yolov5s")
     live.backend = YoloBackend(port_model(ycfg, state), tcfg,
                                input_size=TINY_SIZE)
-    live.fused = FusedPipeline(tcfg, live.backend, live.pose)
+    live.program = ServingProgram(tcfg, live.backend, live.pose)
     d = export_serving_artifact(live, str(tmp_path / "yolo"), batch_size=2)
     assert _program_ops(d) == ["hbpe.nms_sweep.default",
                                "hbpe.decode_heatmaps.default"]

@@ -57,6 +57,20 @@ def test_box_iou_exact():
     np.testing.assert_array_equal(tboxes.box_iou(_t(a), _t(b)).numpy(), ref)
 
 
+def test_xyxy_xywh_roundtrip_matches_jax():
+    """`xyxy2xywh` equals JAX's (tests/test_ops_boxes.py:17's boxes) bit
+    for bit, and back through `xywh2xyxy` within its tolerances."""
+    rng = np.random.default_rng(17)
+    x1y1 = rng.uniform(0, 300, (64, 2))
+    b = np.concatenate([x1y1, x1y1 + rng.uniform(1, 200, (64, 2))],
+                       -1).astype(np.float32)
+    got = tboxes.xyxy2xywh(_t(b))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jboxes.xyxy2xywh(jnp.asarray(b))))
+    np.testing.assert_allclose(tboxes.xywh2xyxy(got).numpy(), b,
+                               rtol=1e-5, atol=1e-4)
+
+
 def test_expand_clip_normalize_exact():
     rng = np.random.default_rng(1)
     boxes = rng.uniform(-50, 700, (4, 3, 4)).astype(np.float32)

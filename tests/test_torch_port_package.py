@@ -35,7 +35,8 @@ for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "training.detection", "training.certify", "training.bottomup",
              "training.certify_bottomup", "cli.certify",
              "cli.certify_bottomup", "pipeline.export", "cli.export_artifact",
-             "utils.compile_cache"):
+             "utils.compile_cache", "models.flax_init", "parallel",
+             "parallel.mesh", "parallel.multihost", "training.sharded"):
     assert port.__name__ + "." + name in names, name
 import chip_smoke
 assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax",

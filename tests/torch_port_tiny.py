@@ -122,25 +122,27 @@ def tiny_models():
         jpose=jpose, det_vars=det_vars, pose_vars=pose_vars, tpipe=tpipe)
 
 
-def jax_registry(m):
+def jax_registry(m, mesh=None, include=PORTED):
     """The JAX package's `build_registry` over the same weights, its
     detector models on the canonical f32 EfficientDet (what the JAX
     registry runs when the serving detector is canonical), restricted to
-    the models the port serves."""
+    the models the port serves (or to `include`), over the pipeline mesh
+    `mesh` (a JAX mesh) if given."""
     from human_body_proportion_estimation_tpu.serve.registry import (
         build_registry,
     )
 
     stand_in = types.SimpleNamespace(
         config=m.jcfg, weights_origin={"detector": "real", "pose": "real"},
-        pose=m.jpose, pose_vars=m.pose_vars, det_vars=m.det_vars, mesh=None,
+        pose=m.jpose, pose_vars=m.pose_vars, det_vars=m.det_vars, mesh=mesh,
         backend=types.SimpleNamespace(detector=m.jdet))
-    return build_registry(stand_in, include=PORTED)
+    return build_registry(stand_in, include=include)
 
 
-def jax_pipeline(m):
+def jax_pipeline(m, mesh=None):
     """The JAX serving pipeline (score-kernel detector, the port's serving
-    path) over the same weights."""
+    path) over the same weights, data-parallel over `mesh` (a JAX mesh)
+    if given."""
     from human_body_proportion_estimation_tpu.pipeline.backends import (
         EfficientDetBackend,
     )
@@ -150,7 +152,7 @@ def jax_pipeline(m):
 
     return InferencePipeline(
         config=m.jcfg, backend=EfficientDetBackend(m.jdet_kernel, m.jcfg),
-        pose=m.jpose, det_vars=m.det_vars, pose_vars=m.pose_vars)
+        pose=m.jpose, det_vars=m.det_vars, pose_vars=m.pose_vars, mesh=mesh)
 
 
 def image(seed, hw=DET_HW):

@@ -49,9 +49,14 @@ def flax_like_state(model, seed):
     key after key: LeCun-normal conv and transposed-conv kernels (std
     fan_in^-1/2, the fan flax counts), zero biases, BatchNorm at unit
     scale, zero shift, mean 0, variance 1 (f32 numpy)."""
-    from human_body_proportion_estimation_tpu_torch.models.layers import (
-        _fan_in,
-    )
+    def _fan_in(module):
+        # the inputs one output of the kernel sums over, as flax counts
+        # them on its HWIO kernel (kh * kw * in / groups; a transposed
+        # conv's kh * kw * in)
+        w = module.weight
+        if isinstance(module, torch.nn.ConvTranspose2d):
+            return w.shape[0] * w.shape[2] * w.shape[3]
+        return w[0].numel()
 
     rng = np.random.default_rng(seed)
     state = {}
