@@ -103,6 +103,24 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      program); `detect_yolo` in subprocesses (remote -g, default,
      --legacy-nms); imgs/s at B=16 beside Lite4 and the NMS kernel on the
      path's own candidates.
+  S. the SSD-MobileNetV1 slot (ROADMAP item 10; the JAX default
+     detector), with the seeded weights of
+     tests/data/torch_port/ssd_goldens.json made again on the CPU
+     (tests/torch_port_ssd.py: flax's draw with a folded calibration, the
+     test-made anchor table): `InferencePipeline(detector="ssd_mobilenet")`
+     in f32 (TF32 off) at B=16 and B=1 on the scenes against the JAX
+     goldens (the same 10 SSD slots a scene, boxes within 0.05 det-input
+     px, scores within 1e-4; the served rows under phase 3's rule);
+     launches counted from 0: one NMS sweep an SSD batch, the keep masks
+     on the path's own [16,128] class-offset candidates equal the plain
+     version's; the registry's `ssd_mobilenet` on those weights over
+     HTTP JSON, hbpe gRPC and KServe gRPC, each answer equal to the
+     in-process program; `HumanDetectorSSD` on a tflite written here
+     without TensorFlow (tests/torch_port_tflite.py) against `SSDBackend`
+     on the dequantized weights; `serve.server` with its default
+     `--detector` exits 2 naming the absent ssd.tflite; where tensorstore
+     imports, `--checkpoint-dir` from a directory written here serves
+     the compact checkpoint's rows; imgs/s at B=16 beside Lite4.
   D. the other slots and their CLIs (ROADMAP item 12), with the seeded
      weights of tests/data/torch_port/slot_goldens.json made again on the
      CPU (tests/torch_port_slots.py): the f32 (TF32 off) EfficientDet-Lite0
@@ -210,8 +228,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      float64 step on the global batch (the goldens of phase T) at phase
      T's float64 tolerance; imgs/s at B=16, dp = 2 beside dp = 1 in turns (a
      record: two shards on one card claim no scaling).
-  4. report: a `kernels` JSON line (launches: phases 3, A, C, Y, D, U, E,
-     T, X and M), the card's name and power limit, and the result line
+  4. report: a `kernels` JSON line (launches: phases 3, A, C, Y, S, D, U,
+     E, T, X and M), the card's name and power limit, and the result line
      {"ok": true, "device": {...}} last.
 
 Imports nothing of JAX; builds into the package's gitignored `build/`.
@@ -236,7 +254,7 @@ F32_FLOP_PER_S = 67e12         # CUDA-core f32
 HEAD_TOL = (1e-3, 1e-3)        # (abs, rel), kernel vs plain head-score
 GOLDEN_MEAN_CM, GOLDEN_MAX_CM = 1.0, 6.0
 FILE_ROUTE = "/body_proportion_length_estimation_file"
-ALL_PHASES = "ABCYDUETXM"
+ALL_PHASES = "ABCYSDUETXM"
 
 
 def log(msg: str) -> None:
@@ -1139,10 +1157,13 @@ def run_cli(golden, repo):
 
 REGISTRY_MODELS = ["edetlite4", "edetlite4_modified",
                    "ensemble_edet4_person_det_pose", "higherhrnet", "hrnet",
-                   "yolov5m", "yolov5s"]
+                   "ssd_mobilenet", "yolov5m", "yolov5s"]
 # the models no weights of which are in the repository
 RANDOM_MODELS = ["higherhrnet", "yolov5m", "yolov5s"]
-NOT_PORTED = ["ssd_mobilenet"]
+# the models whose weights come from a file absent from this checkout (the
+# reference's ssd.tflite): registered, labelled "real", their load fails
+# naming the file
+ABSENT_FILE_MODELS = ["ssd_mobilenet"]
 ENSEMBLE = "ensemble_edet4_person_det_pose"
 KERNELS = ("decode_heatmaps", "head_score", "nms_sweep")
 
@@ -1305,10 +1326,11 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
             index = http.models()["models"]
             assert [r["name"] for r in index] == REGISTRY_MODELS, index
             # no YOLO or HigherHRNet weights are in the repository: those
-            # three are random
-            assert all(r["weights"] == ("random" if r["name"] in RANDOM_MODELS
-                                        else "synthetic-certified")
-                       for r in index), index
+            # three are random; the SSD's are its tflite's
+            assert all(r["weights"] == (
+                "random" if r["name"] in RANDOM_MODELS else "real"
+                if r["name"] in ABSENT_FILE_MODELS else "synthetic-certified")
+                for r in index), index
             assert [r["name"] for r in http.get_model_repository_index()] \
                 == REGISTRY_MODELS
             ch, cw = cfg.pose.crop_height, cfg.pose.crop_width
@@ -1325,10 +1347,24 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
                 -1, 3, ch, cw]
             assert meta["edetlite4"]["outputs"][0]["shape"] == [1, 100, 4]
             assert conf["edetlite4"]["max_batch_size"] == 0
-            for n in NOT_PORTED:
-                status, _, _ = http._request_raw("GET", f"/v2/models/{n}",
-                                                 b"", {})
-                assert status == 404, (n, status)
+            from human_body_proportion_estimation_tpu_torch.models.tflite_import import (  # noqa: E501
+                DEFAULT_TFLITE_PATH,
+            )
+
+            for n in ABSENT_FILE_MODELS:
+                if os.path.exists(DEFAULT_TFLITE_PATH):
+                    continue
+                # its documents are served; its first inference fails as
+                # the JAX registry's does, naming the file (400)
+                assert meta[n]["inputs"][0]["shape"] == [1, -1, -1, 3]
+                status, _, body = http._request_raw(
+                    "POST", f"/v2/models/{n}/infer", json.dumps(
+                        {"inputs": [{"name": "image", "shape": [1, 4, 4, 3],
+                                     "datatype": "UINT8",
+                                     "data": [0] * 48}]}).encode(),
+                    {"Content-Type": "application/json"})
+                assert status == 400 and DEFAULT_TFLITE_PATH in \
+                    body.decode(), (n, status, body[:300])
             if not missing:
                 assert [r["name"] for r in hbpe.repository_index()] == \
                     REGISTRY_MODELS
@@ -1339,8 +1375,9 @@ def run_registry_and_wire(k, pipe, golden, scene_bytes):
                     assert hbpe.model_config(n)["max_batch_size"] == \
                         conf[n]["max_batch_size"]
             assert meta["yolov5m"]["outputs"][0]["shape"] == [-1, 25200, 85]
-            log("phase C: index and documents of the 7 models at full width "
-                "agree over " + ", ".join(clients))
+            log("phase C: index and documents of the 8 models at full width "
+                "agree over " + ", ".join(clients) + "; ssd_mobilenet "
+                "without its ssd.tflite answers 400 naming the file")
 
             # the ensemble on the scenes, against the main path and goldens
             main = pipe.infer_images([i[0] for i in images], height, thres)
@@ -1907,6 +1944,348 @@ def run_yolo(k, dev, lite4_pipe, repo):
         f"{json.dumps(sweep)}")
     log(f"phase Y card: {card_line()}")
     log(f"phase Y: {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{counted.total}")
+    return counted.total
+
+
+# --------------------------------------------------------------------- #
+# phase S: the SSD-MobileNetV1 slot
+
+
+def ssd_slots_against(res, golden, det_hw, what):
+    """The 10 TFLite_Detection_PostProcess slots of each scene against the
+    goldens': the same detections (validity and classes), boxes within
+    0.05 det-input px, scores within 1e-4. Returns (box px, score) errors."""
+    import numpy as np
+
+    ref = golden["ssd_slots"]
+    valid = np.asarray(ref["valid"])
+    got_valid = res.valid.cpu().numpy()
+    assert np.array_equal(got_valid, valid), (what, got_valid, valid)
+    assert np.array_equal(res.classes.cpu().numpy(),
+                          np.asarray(ref["classes"], np.float32)), what
+    h, w = det_hw
+    scale = np.asarray([h, w, h, w], np.float32)
+    box_err = float((np.abs(res.boxes.cpu().numpy() - np.asarray(
+        ref["boxes"], np.float32)) * scale)[valid].max())
+    score_err = float(np.abs(res.scores.cpu().numpy() - np.asarray(
+        ref["scores"], np.float32))[valid].max())
+    assert box_err <= 0.05 and score_err <= 1e-4, (what, box_err, score_err)
+    return box_err, score_err
+
+
+def run_ssd(k, dev, lite4_pipe, repo):
+    """Phase S: the SSD slot on the card, on seeded weights (the reference's
+    ssd.tflite is not in the checkout). Returns the launches of the path's
+    forwards, artifact batch and requests (comparisons excluded)."""
+    import importlib.util
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.models.ssd_mobilenet import (  # noqa: E501
+        load_ssd,
+        ssd_postprocess,
+        ssd_state_dict,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.tflite_import import (  # noqa: E501
+        DEFAULT_TFLITE_PATH,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.backends import (
+        SSDBackend,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.export import (
+        ArtifactPipeline,
+        export_serving_artifact,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        InferencePipeline,
+        decode_image_bytes,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.human_detector import (  # noqa: E501
+        HumanDetectorSSD,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.client import (
+        HttpClient,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve.server import (
+        ServingApp,
+    )
+    from human_body_proportion_estimation_tpu_torch.utils.config import (
+        DetectorConfig,
+        PipelineConfig,
+    )
+
+    t_phase = time.perf_counter()
+    recipe = load_tests_module("torch_port_ssd")
+    tflite = load_tests_module("torch_port_tflite")
+    with open(os.path.join(DATA, "ssd_goldens.json")) as fh:
+        golden = json.load(fh)
+    scene_bytes = []
+    for name in golden["scenes"]:
+        with open(os.path.join(DATA, name), "rb") as fh:
+            scene_bytes.append(fh.read())
+    images = [decode_image_bytes(b) for b in scene_bytes]
+    n = len(images)
+    height, thres = golden["person_height_cm"], golden["det_threshold"]
+    batch16 = [images[i % n] for i in range(16)]
+    counted = Counted(k)
+
+    # 1. the goldens' seeded weights, made again here on the CPU
+    t0 = time.perf_counter()
+    tree = recipe.seeded_ssd(golden["seed"], np.stack(images),
+                             golden["person_bias"])
+    anchors = recipe.ssd_anchors()
+    state = ssd_state_dict(tree, anchors)
+    log(f"phase S: seeded SSD (flax's draw at seed {golden['seed']}, folded "
+        f"calibration, person bias {golden['person_bias']}) made on the CPU "
+        f"in {time.perf_counter() - t0:.1f} s")
+    pipe32 = InferencePipeline(det_state=state, device=dev,
+                               dtype=torch.float32, detector="ssd_mobilenet")
+    cfg = pipe32.config
+    det_hw = (cfg.detector.input_height, cfg.detector.input_width)
+    assert pipe32.weights_origin == {"detector": "real",
+                                     "pose": "synthetic-certified"}
+
+    # 2. f32 (TF32 off) forwards: launches, keep masks, the goldens
+    with recording_nms(k) as seen:
+        with counted:
+            packed32 = pipe32.infer_serving(batch16, height, thres)
+            outs32 = [pipe32.infer_images([img], height, thres)
+                      for img in images]
+    forwards = 1 + n
+    assert counted.last == {"decode_heatmaps": forwards, "head_score": 0,
+                            "nms_sweep": forwards}, counted.last
+    shapes = check_keep_masks(k, seen, "SSD serving forwards")
+    assert sorted(shapes) == sorted([((16, 128), False)]
+                                    + [((1, 128), False)] * n), shapes
+    path_boxes, path_scores = seen[0][0], seen[0][1]
+    # the class offsets: coordinates up to class * MAX_WH
+    offset_max = float(path_boxes.abs().max())
+    log(f"phase S: {forwards} forwards, launches {counted.last} (one sweep "
+        f"an SSD batch); the {len(seen)} keep masks equal the plain "
+        f"version's, on [16,128] class-offset candidates up to "
+        f"{offset_max:.1f}")
+    assert np.isfinite(packed32).all() and packed32.shape == (16, 3, 23)
+    for i in range(16):
+        np.testing.assert_array_equal(packed32[i], packed32[i % n])
+    f32 = check_yolo_golden(packed32, golden, "SSD f32 serving forward")
+    boxes = np.concatenate([o.boxes_orig for o in outs32])
+    scores = np.concatenate([o.det_scores for o in outs32])
+    valid = np.asarray(golden["person_valid"])
+    person_box_err = float(np.abs(boxes - np.asarray(
+        golden["boxes_orig_yxyx"]))[valid].max())
+    person_score_err = float(np.abs(scores - np.asarray(
+        golden["det_scores"]))[valid].max())
+    assert person_box_err <= 0.05 and person_score_err <= 1e-4, (
+        person_box_err, person_score_err)
+    # the raw outputs and the 10 SSD slots of each scene
+    x = torch.from_numpy(recipe.ssd_inputs(np.stack(images))).to(dev)
+    with torch.inference_mode():
+        box_regs, logits = pipe32.backend.model(x)
+        res = ssd_postprocess(box_regs, logits, pipe32.backend.anchors)
+    ext = golden["raw_extrema"]
+    raw_err = max(
+        float(np.abs(box_regs.amin((1, 2)).cpu().numpy()
+                     - ext["box_regs_min"]).max()),
+        float(np.abs(box_regs.amax((1, 2)).cpu().numpy()
+                     - ext["box_regs_max"]).max()),
+        float(np.abs(logits.amin((1, 2)).cpu().numpy()
+                     - ext["logits_min"]).max()),
+        float(np.abs(logits.amax((1, 2)).cpu().numpy()
+                     - ext["logits_max"]).max()))
+    slot_box_err, slot_score_err = ssd_slots_against(res, golden, det_hw,
+                                                     "SSD slots")
+    log(f"phase S: f32 (TF32 off) vs the JAX goldens: the same 10 SSD "
+        f"slots a scene (boxes within {slot_box_err:.3g} px, scores within "
+        f"{slot_score_err:.3g}; raw extrema within {raw_err:.3g}); served "
+        f"rows {json.dumps(f32)}; B=1 person boxes within "
+        f"{person_box_err:.3g} px, scores within {person_score_err:.3g}")
+
+    # 3. the SSD slot's serving artifact (pipeline/export.py) at B=16:
+    # exported from the f32 pipeline, restored, its rows against the live
+    # forward's; one NMS launch and one decode an artifact batch
+    tmp = tempfile.mkdtemp(prefix="phase_s_")
+    art = os.path.join(tmp, "ssd_w32_b16")
+    t0 = time.perf_counter()
+    export_serving_artifact(pipe32, art, batch_size=16)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = ArtifactPipeline(art, device=dev)
+    t_restore = time.perf_counter() - t0
+    assert restored.weights_origin == pipe32.weights_origin
+    with counted:
+        art16 = restored.infer_serving(batch16, height, thres)
+    assert counted.last == {"decode_heatmaps": 1, "head_score": 0,
+                            "nms_sweep": 1}, counted.last
+    art_vs_live = packed_against(art16, packed32,
+                                 "SSD artifact B=16 vs live B=16")
+    assert art_vs_live["identical"], art_vs_live
+    mib = os.path.getsize(os.path.join(art, "pipeline.pt2")) / 2**20
+    log(f"phase S: the SSD artifact at B=16 (f32, exported in "
+        f"{t_export:.1f} s, {mib:.1f} MiB) restores in {t_restore:.1f} s "
+        f"with the pipeline's labels; launches a batch "
+        f"{counted.last}; vs live B=16 {json.dumps(art_vs_live)}")
+    del restored
+
+    # 4. the registry's ssd_mobilenet over HTTP JSON, hbpe gRPC and KServe
+    # gRPC, against the in-process program (ssd_postprocess at B=1)
+    missing = grpc_modules()
+    app = ServingApp(pipe32)
+    grpc_server = None
+    reg_figs = {}
+    with served(app) as port:
+        http = HttpClient("127.0.0.1", port)
+        clients = {"http_json": lambda name, inputs: http.infer(
+            name, inputs, binary=False)}
+        if not missing:
+            from human_body_proportion_estimation_tpu_torch.serve.grpc_server import (  # noqa: E501
+                GrpcClient,
+                create_grpc_server,
+            )
+            from human_body_proportion_estimation_tpu_torch.serve.kserve_grpc import (  # noqa: E501
+                KServeClient,
+            )
+
+            grpc_server, gport = create_grpc_server(app, "127.0.0.1", 0)
+            grpc_server.start()
+            hbpe = GrpcClient(f"127.0.0.1:{gport}")
+            kserve = KServeClient(f"127.0.0.1:{gport}")
+            clients["hbpe"] = hbpe.infer
+            clients["kserve"] = (lambda name, inputs:
+                                 kserve.infer(name, inputs))
+        try:
+            meta = http.model_metadata("ssd_mobilenet")
+            assert meta["inputs"][0]["shape"] == [1, -1, -1, 3], meta
+            index = {r["name"]: r["weights"] for r in http.models()["models"]}
+            assert index["ssd_mobilenet"] == "real", index
+            for s, img in enumerate(images):
+                ssd_in = cv2.resize(img, (300, 300)).astype(np.uint8)
+                with torch.inference_mode():
+                    br, lg = pipe32.backend.model(
+                        torch.from_numpy(ssd_in[None]).to(dev))
+                    want = ssd_postprocess(br, lg, pipe32.backend.anchors)
+                want = {"detection_boxes": want.boxes,
+                        "detection_classes": want.classes,
+                        "detection_scores": want.scores,
+                        "num_detections": want.valid.sum(-1).float()}
+                for via, infer in clients.items():
+                    with counted:
+                        got = infer("ssd_mobilenet", {"image": img[None]})
+                    assert counted.last == {"decode_heatmaps": 0,
+                                            "head_score": 0,
+                                            "nms_sweep": 1}, counted.last
+                    for key, ref in want.items():
+                        ref = ref.cpu().numpy()
+                        assert got[key].shape == ref.shape, (via, key)
+                        np.testing.assert_array_equal(
+                            got[key], ref, err_msg=f"{via} {key}")
+                    reg_figs.setdefault(via, 0)
+                    reg_figs[via] += int(got["num_detections"][0])
+        finally:
+            if grpc_server is not None:
+                grpc_server.stop(0)
+    log(f"phase S: registry ssd_mobilenet over {', '.join(clients)}: each "
+        f"answer equal to the in-process program (detections {reg_figs}), "
+        "one NMS launch ([1,128]) a request")
+
+    # 5. HumanDetectorSSD on a tflite written here (no TensorFlow): the
+    # seeded weights quantized to uint8, read by the port's own parser
+    path = tflite.write_tflite(os.path.join(tmp, "ssd.tflite"),
+                               tflite.ssd_tensors(tree["params"], anchors))
+    detector = HumanDetectorSSD(tflite_path=path, threshold=0.3, device=dev)
+    square = PipelineConfig(detector=DetectorConfig(
+        name="ssd_mobilenet", input_height=300, input_width=300))
+    model, table = load_ssd(path=path, dtype=torch.float32, device=dev)
+    backend = SSDBackend(model, square, table)
+    found = []
+    for img in images:
+        with counted:
+            d_boxes, d_scores = detector.get_detections(img)
+        assert counted.last["nms_sweep"] == 1, counted.last
+        ssd_in = cv2.resize(img, (300, 300)).astype(np.float32)
+        with torch.inference_mode():
+            b_boxes, b_scores, b_valid = backend(
+                torch.from_numpy(ssd_in[None]).to(dev),
+                torch.tensor([0.3], device=dev))
+        m = int(b_valid.sum())
+        assert min(len(d_boxes), 3) == m, (len(d_boxes), m)
+        np.testing.assert_allclose(
+            d_boxes[:m], b_boxes[0, :m].cpu().numpy() / 300.0, rtol=0,
+            atol=1e-5)
+        np.testing.assert_array_equal(d_scores[:m],
+                                      b_scores[0, :m].cpu().numpy())
+        found.append(len(d_boxes))
+    log(f"phase S: HumanDetectorSSD on a written {os.path.getsize(path)} B "
+        f"tflite (uint8 weights) finds {found} persons at 0.3, the boxes "
+        "and scores SSDBackend gives on the dequantized weights")
+
+    # 6. the default server with the file absent: exit 2 naming it
+    if not os.path.exists(DEFAULT_TFLITE_PATH):
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "human_body_proportion_estimation_tpu_torch.serve.server",
+             "--port", "0", "--grpc-port", "0"],
+            cwd=repo, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 2 and DEFAULT_TFLITE_PATH in proc.stderr, (
+            proc.returncode, proc.stderr[-2000:])
+        log(f"phase S: serve.server with its default --detector exits 2 "
+            f"naming {DEFAULT_TFLITE_PATH}")
+
+    # 7. --checkpoint-dir (an Orbax checkpoint read through tensorstore):
+    # written here from the certified weights, served once, rows equal
+    # to the compact checkpoint's path
+    if importlib.util.find_spec("tensorstore") is None:
+        log("phase S: tensorstore is not installed on this machine: "
+            "--checkpoint-dir exits 2 here, naming it")
+    else:
+        from human_body_proportion_estimation_tpu_torch.models.weights import (  # noqa: E501
+            save_pipeline_checkpoint,
+            state_dict_to_flax,
+        )
+        from human_body_proportion_estimation_tpu_torch.serve import (
+            server as srv,
+        )
+
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        save_pipeline_checkpoint(
+            ckpt, state_dict_to_flax(lite4_pipe.backend.detector.state_dict()),
+            state_dict_to_flax(lite4_pipe.pose.state_dict()))
+        t_write = time.perf_counter() - t0
+        args = srv.build_parser().parse_args(
+            ["--detector", "efficientdet_lite4", "--checkpoint-dir", ckpt])
+        t0 = time.perf_counter()
+        cpipe = srv.build_pipeline(args)
+        t_read = time.perf_counter() - t0
+        assert cpipe.weights_origin == {"detector": "real", "pose": "real"}
+        rows = cpipe.infer_serving(batch16, height, thres)
+        ref = lite4_pipe.infer_serving(batch16, height, thres)
+        np.testing.assert_array_equal(rows, ref)
+        log(f"phase S: --checkpoint-dir (written in {t_write:.1f} s, read "
+            f"in {t_read:.1f} s through tensorstore): rows equal to the "
+            "compact checkpoint's at B=16")
+        del cpipe
+
+    # 8. imgs/s at B=16: the SSD slot (bf16, as the server builds it) and
+    # Lite4, in turns
+    pipe16 = InferencePipeline(det_state=state, device=dev,
+                               detector="ssd_mobilenet")
+    rates = {"ssd_mobilenet": [], "efficientdet_lite4": []}
+    for _ in range(2):
+        for name, p in (("ssd_mobilenet", pipe16),
+                        ("efficientdet_lite4", lite4_pipe)):
+            rates[name].append(imgs_per_s(p, batch16, height, thres))
+    with counted:
+        pipe16.infer_serving(batch16, height, thres)
+    assert counted.last == {"decode_heatmaps": 1, "head_score": 0,
+                            "nms_sweep": 1}, counted.last
+    log(f"phase S: infer_serving imgs/s at B=16 in turns: "
+        f"{json.dumps({n_: [round(r, 2) for r in v] for n_, v in rates.items()})}"  # noqa: E501
+        f" on {card_line()}")
+    log(f"phase S: {time.perf_counter() - t_phase:.1f} s, launches "
         f"{counted.total}")
     return counted.total
 
@@ -2709,7 +3088,8 @@ def run_bottom_up(k, dev, repo, batch=16):
             http = HttpClient("127.0.0.1", http_port)
             index = {r["name"]: r["weights"] for r in http.models()["models"]}
             assert index["higherhrnet"] == "random", index
-            assert "ssd_mobilenet" not in index, index
+            # the SSD is registered whatever the slot, its tflite's label
+            assert index["ssd_mobilenet"] == "real", index
             rng = np.random.default_rng(9)
             for via, infer in clients.items():
                 for rows in (1, 2, 3):
@@ -3840,6 +4220,7 @@ def main() -> int:
             "B": lambda: run_cli(golden, repo),
             "C": lambda: run_registry_and_wire(k, pipe, golden, scene_bytes),
             "Y": lambda: run_yolo(k, dev, pipe, repo),
+            "S": lambda: run_ssd(k, dev, pipe, repo),
             "D": lambda: run_other_slots(k, dev, pipe, repo),
             "U": lambda: run_bottom_up(k, dev, repo),
             "E": lambda: run_evaluate(k, pipe, repo),
@@ -3849,8 +4230,9 @@ def main() -> int:
         }
         # the kernels line counts the launches of every path driven: the
         # main path (phase 3), the serving edge (A), the registry and wire
-        # protocols (C), the YOLO slot (Y), the other slots (D), bottom-up
-        # pose (U: none), the evaluate CLI's pipeline (E), the certify
+        # protocols (C), the YOLO slot (Y), the SSD slot (S), the other
+        # slots (D), bottom-up pose (U: none), the evaluate CLI's
+        # pipeline (E), the certify
         # CLIs of training (T), the artifact's batches (X) and one dp = 2
         # batch (M), each counted from 0 just before it
         for name, run in phases.items():

@@ -14,7 +14,10 @@ of the JAX package's `cli/certify.py`, on the GPU).
      held-out renders and compares every returned cm segment with analytic
      truth;
   4. fills the accuracy table over a synthetic-COCO val set
-     (`cli/evaluate.run_eval`).
+     (`cli/evaluate.run_eval`);
+  5. also sweeps the real-weight SSD detector (the reference's checked-in
+     ssd.tflite) before the trained pose model, reported but not gated
+     (`served_ssd`).
 
     python3 -m human_body_proportion_estimation_tpu_torch.cli.certify \\
         --det-arch lite4 --workdir OUT --emit-compact OUT/certified.npz
@@ -23,11 +26,14 @@ The flags are the JAX CLI's, plus `--cpu` (the device, as in
 `cli/detect_yolo`; f32 there, bf16 on the GPU). `--smoke` shrinks shapes
 and budgets as in JAX (tiny models, marker scenes; its detector's FPN is
 32 wide where JAX's is 24, because the head-score kernel takes widths in
-multiples of 16) but does not pick the device. Not ported yet, exiting
-with code 2: `--detector ssd` (ROADMAP.md item 10) and a bare
-`--emit-compact` (JAX writes the reference package's committed
-checkpoint then: give a path). The secondary real-SSD sweep is not run
-(item 10); the report says so under `served_ssd`. `--compile-cache-dir`
+multiples of 16) but does not pick the device. `--detector ssd` trains
+no detector and serves the SSD (the real weights of the reference's
+ssd.tflite) as the primary sweep; with the file absent it exits 2 naming
+the file before anything is built. The secondary real-SSD sweep runs
+where the file is; where it is absent the report records
+`served_ssd: {"skipped": "<path> absent"}` (JAX would fail there, after
+the training). A bare `--emit-compact` exits 2 (JAX writes the reference
+package's committed checkpoint then: give a path). `--compile-cache-dir`
 and `--no-compile-cache` say where the CUDA kernels are built and found
 (`utils/compile_cache`).
 
@@ -291,8 +297,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument(
         "--detector", default="trained", choices=("trained", "ssd"),
         help="primary detection slot: 'trained' trains EfficientDet on the "
-             "renders; 'ssd' is not ported yet (ROADMAP.md item 10: exits "
-             "2)",
+             "renders; 'ssd' skips detector training and serves the "
+             "real-weight SSD (reference ssd.tflite; exits 2 naming the "
+             "file when it is absent)",
     )
     parser.add_argument(
         "--det-arch", default="lite0", choices=("lite0", "lite4"),
@@ -311,8 +318,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--skip-coco", action="store_true")
     parser.add_argument("--skip-ssd", action="store_true",
                         help="skip the secondary real-SSD + trained-pose "
-                             "sweep (not ported yet either way: ROADMAP.md "
-                             "item 10)")
+                             "sweep (recorded as skipped when ssd.tflite is "
+                             "absent)")
     parser.add_argument("--smoke", action="store_true",
                         help="wiring check: reduced shapes, tiny models, "
                              "marker scenes (on the CPU with --cpu)")
@@ -332,11 +339,20 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_not_ported(parser, args) -> None:
-    """Exit 2 (argparse's usage error) for the options the port does not
-    serve yet."""
+    """Exit 2 (argparse's usage error) for the options this run cannot
+    serve: `--detector ssd` without ssd.tflite (and not `--smoke`, as in
+    JAX), a bare `--emit-compact`."""
+    from human_body_proportion_estimation_tpu_torch.cli.common import (
+        option_problems,
+    )
+
     if args.detector == "ssd":
-        parser.error("--detector ssd is not ported yet: ROADMAP.md item 10 "
-                     "(SSD)")
+        problems = option_problems("ssd_mobilenet", None)
+        if problems:
+            parser.error("; ".join(problems))
+        if args.smoke:
+            parser.error("--detector ssd needs production shapes "
+                         "(not --smoke)")
     if args.emit_compact == "default":
         parser.error("--emit-compact needs a PATH: without one the JAX CLI "
                      "overwrites the reference package's committed "
@@ -532,32 +548,35 @@ def main(argv=None):
             log(f"gate calibration gamma: {report['gate_gamma']}")
 
         # ------------------- detector training (on the device) -----------
-        det_subset = train_scenes[:args.det_scenes]
-        imgs, gt_boxes, gt_classes, gt_valid = C.det_arrays(det_subset)
-        log(f"det dataset {imgs.shape} ({imgs.nbytes / 1e6:.0f} MB); "
-            f"training {args.det_steps} steps @ batch {args.det_batch}")
-        init_det_flax(det_model, args.seed)
-        t0 = time.perf_counter()
-        det_state, det_losses = C.train_det_resident(
-            det_model, imgs, gt_boxes, gt_classes, gt_valid,
-            steps=args.det_steps, batch=args.det_batch,
-            learning_rate=args.det_lr, seed=args.seed,
-            chunk=100,
-            log_fn=lambda s, z: log(f"  det step {s}: loss {z:.5f}"),
-            cosine=not args.smoke,
-        )
-        log(f"det training: {args.det_steps * args.det_batch / (time.perf_counter() - t0):.1f} imgs/s")  # noqa: E501
-        report["det_loss_first"] = det_losses[0]
-        report["det_loss_last"] = det_losses[-1]
-
-        weights.save_training_checkpoint(det_path, det_state,
-                                         args.det_steps)
+        # (none for --detector ssd: the SSD serves its own real weights)
+        if args.detector == "trained":
+            det_subset = train_scenes[:args.det_scenes]
+            imgs, gt_boxes, gt_classes, gt_valid = C.det_arrays(det_subset)
+            log(f"det dataset {imgs.shape} ({imgs.nbytes / 1e6:.0f} MB); "
+                f"training {args.det_steps} steps @ batch "
+                f"{args.det_batch}")
+            init_det_flax(det_model, args.seed)
+            t0 = time.perf_counter()
+            det_state, det_losses = C.train_det_resident(
+                det_model, imgs, gt_boxes, gt_classes, gt_valid,
+                steps=args.det_steps, batch=args.det_batch,
+                learning_rate=args.det_lr, seed=args.seed,
+                chunk=100,
+                log_fn=lambda s, z: log(f"  det step {s}: loss {z:.5f}"),
+                cosine=not args.smoke,
+            )
+            log(f"det training: {args.det_steps * args.det_batch / (time.perf_counter() - t0):.1f} imgs/s")  # noqa: E501
+            report["det_loss_first"] = det_losses[0]
+            report["det_loss_last"] = det_losses[-1]
+            weights.save_training_checkpoint(det_path, det_state,
+                                             args.det_steps)
         weights.save_training_checkpoint(pose_path, pose_state,
                                          args.pose_steps)
         log(f"checkpoint saved to {ckpt_dir}")
 
     # ------------------- reload via the serving load path ----------------
-    det_r = reload_state(det_path, det_state)
+    det_r = (reload_state(det_path, det_state) if args.detector == "trained"
+             else None)
     pose_r = reload_state(pose_path, pose_state)
 
     # direct pose sanity on held-out crops (fail fast pre-serving)
@@ -565,10 +584,18 @@ def main(argv=None):
                                          cfg)
     log(f"pose val: {report['pose_val']}")
 
-    pipeline = InferencePipeline(
-        config=cfg, det_state=det_r, pose_state=pose_r, device=device,
-        det_config=det_config, pose_config=pose_config, dtype=dtype,
-    )
+    if args.detector == "ssd":
+        pipeline = InferencePipeline(
+            config=PipelineConfig(
+                detector=DetectorConfig(name="ssd_mobilenet")),
+            detector="ssd_mobilenet", pose_state=pose_r, device=device,
+            dtype=dtype)
+        args.skip_ssd = True  # it IS the primary sweep
+    else:
+        pipeline = InferencePipeline(
+            config=cfg, det_state=det_r, pose_state=pose_r, device=device,
+            det_config=det_config, pose_config=pose_config, dtype=dtype,
+        )
     del pose_model, det_model
 
     report["det_val"] = detector_val_report(pipeline, val_scenes,
@@ -576,8 +603,9 @@ def main(argv=None):
     log(f"det val: {report['det_val']}")
 
     # ------------------- the served-cm certification ---------------------
-    log(f"serving sweep (trained EfficientDet-{args.det_arch.title()} + "
-        "trained HRNet)")
+    log("serving sweep (" + ("real-weight SSD" if args.detector == "ssd" else
+                             f"trained EfficientDet-{args.det_arch.title()}")
+        + " + trained HRNet)")
     report["served"] = serve_sweep(pipeline, val_scenes,
                                    args.det_threshold)
     log(f"served: {report['served']}")
@@ -596,10 +624,26 @@ def main(argv=None):
 
     # ------------------- secondary: real-SSD + trained pose --------------
     if not (args.skip_ssd or args.smoke):
-        report["served_ssd"] = {
-            "skipped": "not ported yet: ROADMAP.md item 10 (SSD)"}
-        log("secondary sweep (real-weight SSD + trained pose) skipped: "
-            "not ported yet, ROADMAP.md item 10")
+        from human_body_proportion_estimation_tpu_torch.models.tflite_import import (  # noqa: E501
+            DEFAULT_TFLITE_PATH,
+        )
+
+        if os.path.exists(DEFAULT_TFLITE_PATH):
+            log("secondary sweep: real-weight SSD + trained pose")
+            ssd_pipe = InferencePipeline(
+                config=PipelineConfig(
+                    detector=DetectorConfig(name="ssd_mobilenet")),
+                detector="ssd_mobilenet", pose_state=pose_r, device=device,
+                dtype=dtype)
+            report["served_ssd"] = serve_sweep(ssd_pipe, val_scenes,
+                                               det_threshold=0.40)
+            log(f"served (ssd): {report['served_ssd']}")
+        else:
+            # kept on purpose: after the training, where JAX would raise
+            report["served_ssd"] = {
+                "skipped": f"{DEFAULT_TFLITE_PATH} absent"}
+            log(f"secondary sweep (real-weight SSD + trained pose) "
+                f"skipped: {DEFAULT_TFLITE_PATH} absent")
 
     # ------------------- gates -------------------------------------------
     served = report["served"]

@@ -8,10 +8,12 @@ JAX package's `cli/evaluate.py`, on the GPU).
 
 The reference has no evaluation entry point; its accuracy claim is the
 upstream zoos' published COCO numbers (SURVEY §6). The flags are the JAX
-CLI's. `--detector` defaults to `ssd_mobilenet` as there, which exits
-with code 2 until ROADMAP.md item 10 ports it, as `--checkpoint-dir` does
-until item 17; `--compile-cache-dir` and `--no-compile-cache` say where
-the CUDA kernels are built and found (`utils/compile_cache`).
+CLI's. `--detector` defaults to `ssd_mobilenet` as there (the real
+weights of the reference's ssd.tflite; exit code 2 naming the file when
+it is absent); `--checkpoint-dir` reads an Orbax checkpoint through
+tensorstore (`cli/common.build_pipeline`); `--compile-cache-dir` and
+`--no-compile-cache` say where the CUDA kernels are built and found
+(`utils/compile_cache`).
 
 Caveat (by design, shared with the reference): the fused pipeline keeps
 at most `max_persons` (3) slots an image, the reference's top-3 ensemble
@@ -159,11 +161,14 @@ def build_parser() -> argparse.ArgumentParser:
         "--detector", default="ssd_mobilenet",
         choices=["efficientdet_lite4", "efficientdet_lite0",
                  "ssd_mobilenet", "yolov5s", "yolov5m"],
-        help="default ssd_mobilenet, as the JAX CLI (not ported yet: "
-             "exits 2)",
+        help="default ssd_mobilenet, as the JAX CLI (the real weights of "
+             "the reference's ssd.tflite; exits 2 naming the file when it "
+             "is absent)",
     )
     parser.add_argument("--checkpoint-dir", default=None,
-                        help="orbax checkpoint dir (not ported yet: exits 2)")
+                        help="orbax checkpoint dir (read through "
+                             "tensorstore; the SSD detector takes only its "
+                             "pose slot)")
     parser.add_argument("--limit", type=int, default=0,
                         help="evaluate only the first N images (0 = all)")
     parser.add_argument("--batch-size", type=int, default=8)

@@ -14,14 +14,16 @@ proportions program exported with `torch.export` (its weights inside) and
 The serving side (`pipeline/export.ArtifactPipeline`) restores and runs it
 without building a model. The program is exported on the GPU and serves
 there; `--cpu` exports an f32 program for the CPU instead. The JAX flags,
-plus `--cpu`: `--detector ssd_mobilenet` (the JAX default) and
-`--checkpoint-dir` exit 2 with the ROADMAP.md item that brings them.
+plus `--cpu`. `--detector ssd_mobilenet` (the JAX default) bakes in the
+real weights of the reference's ssd.tflite, and exits 2 naming the file
+when it is absent; `--checkpoint-dir` reads an Orbax checkpoint through
+tensorstore (exit 2 without it), of which the SSD slot takes only the
+pose side, as in JAX.
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 from human_body_proportion_estimation_tpu_torch.utils import compile_cache
 
@@ -37,13 +39,15 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["efficientdet_lite4", "efficientdet_lite0",
                  "ssd_mobilenet", "yolov5s", "yolov5m"],
         help="detector slot baked into the fused program (default "
-             "ssd_mobilenet, as the JAX CLI: not ported yet, exits); "
-             "efficientdet_lite4 carries the committed synthetic-certified "
-             "weights, the other slots a random detector",
+             "ssd_mobilenet, as the JAX CLI: the real weights of the "
+             "reference's ssd.tflite, exits 2 naming the file when it is "
+             "absent); efficientdet_lite4 carries the committed "
+             "synthetic-certified weights, the other slots a random "
+             "detector",
     )
     parser.add_argument("--checkpoint-dir", default=None,
                         help="orbax checkpoint dir with det/pose params "
-                             "(not ported yet: exits)")
+                             "(read through tensorstore)")
     parser.add_argument("--batch-size", type=int, default=16,
                         help="fixed batch size of the exported program")
     parser.add_argument(
@@ -60,28 +64,16 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _not_yet(args) -> list:
+def main(argv=None):
     from human_body_proportion_estimation_tpu_torch.cli.common import (
-        NOT_PORTED_DETECTORS,
+        checkpoint_states,
+        exit_on_problems,
+        option_problems,
     )
 
-    msgs = []
-    if args.checkpoint_dir:
-        msgs.append("--checkpoint-dir (orbax checkpoints): ROADMAP.md "
-                    "item 17")
-    if not args.bottom_up and args.detector in NOT_PORTED_DETECTORS:
-        msgs.append(f"--detector {args.detector}: ROADMAP.md "
-                    f"{NOT_PORTED_DETECTORS[args.detector]}")
-    return msgs
-
-
-def main(argv=None):
     args = build_parser().parse_args(argv)
-    not_yet = _not_yet(args)
-    if not_yet:
-        for msg in not_yet:
-            print(f"not ported yet: {msg}", file=sys.stderr)
-        raise SystemExit(2)
+    exit_on_problems(option_problems(args.detector, args.checkpoint_dir,
+                                     bottom_up=args.bottom_up))
 
     import torch
 
@@ -97,7 +89,10 @@ def main(argv=None):
             build_default,
         )
 
-        pipeline = build_default(device=device, dtype=dtype)
+        pose_state = (checkpoint_states(args.checkpoint_dir)[1]
+                      if args.checkpoint_dir else None)
+        pipeline = build_default(device=device, dtype=dtype,
+                                 pose_state=pose_state)
         if pipeline.weights_origin["pose"] == "random":
             print(
                 "WARNING: exporting RANDOM-INIT HigherHRNet — the artifact "
@@ -114,10 +109,16 @@ def main(argv=None):
         InferencePipeline,
     )
 
-    # the certified fallback: the committed checkpoint fills the pose slot,
-    # and the detector slot for efficientdet_lite4; other slots are random
+    # --checkpoint-dir's slots, else the certified fallback: the committed
+    # checkpoint fills the pose slot, and the detector slot for
+    # efficientdet_lite4; the SSD serves the tflite's; others are random
+    det_state = pose_state = None
+    if args.checkpoint_dir:
+        det_state, pose_state = checkpoint_states(args.checkpoint_dir,
+                                                  args.detector)
     pipeline = InferencePipeline(device=device, dtype=dtype,
-                                 detector=args.detector)
+                                 detector=args.detector, det_state=det_state,
+                                 pose_state=pose_state)
     if "random" in pipeline.weights_origin.values():
         print(
             "WARNING: exporting RANDOM-INIT weights for "

@@ -8,7 +8,7 @@ standard (ty, tx, th, tw) -> (cy, cx, h, w) faster-rcnn parameterization.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -71,3 +71,14 @@ def decode_boxes(
     return torch.stack(
         [cy - h / 2, cx - w / 2, cy + h / 2, cx + w / 2], dim=-1
     )
+
+
+def feature_shapes(
+    cfg: AnchorConfig, image_h: int, image_w: int
+) -> List[Tuple[int, int]]:
+    """(H, W) of each pyramid level's feature map, levels min..max: the
+    input size divided by 2^level, rounded up."""
+    return [
+        (-(-image_h // 2 ** lvl), -(-image_w // 2 ** lvl))
+        for lvl in range(cfg.min_level, cfg.max_level + 1)
+    ]

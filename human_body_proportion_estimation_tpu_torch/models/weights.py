@@ -30,20 +30,41 @@ Writers, for the trainers (`training/`):
   * `save_training_checkpoint` / `load_training_checkpoint`: the
     `{params, batch_stats, step}` tree the JAX trainers checkpoint, as an
     f32 `.npz`. The JAX package writes it with Orbax
-    (weights.py:39-66, training/loop.py:81-94), and `orbax.checkpoint`
-    imports jax; reading Orbax checkpoints is ROADMAP.md item 17.
+    (weights.py:39-66, training/loop.py:81-94).
+
+Orbax checkpoints (`--checkpoint-dir`): `load_pipeline_checkpoint` /
+`load_pose_checkpoint` read the directories the JAX package's
+`save_pipeline_checkpoint` / `save_pose_checkpoint` write, and the
+`save_*` twins write directories those read. `orbax.checkpoint` imports
+jax, so the port reads and writes the format itself through
+`tensorstore`, imported inside these functions: one PyTree checkpoint
+a slot (`det/`, `pose/`), its tree in `_METADATA`, every leaf a zarr v2
+array named by its '.'-joined keys in an OCDBT key-value store.
+
+Importers of the official torch pose checkpoints (numpy only; the port of
+weights.py:159-477): `import_torch_hrnet` / `export_torch_hrnet`
+(pose_hrnet) and `import_torch_higherhrnet` / `export_torch_higherhrnet`
+(PoseHigherResolutionNet) map a torch `state_dict` (numpy values) onto a
+flax tree and back; `flax_to_state_dict` then gives the port's weights.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import shutil
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from human_body_proportion_estimation_tpu_torch.models.hrnet import (
+    HRNET_W32,
+    HRNetConfig,
+)
 
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -229,6 +250,370 @@ def load_training_checkpoint(path: str) -> Tuple[Dict, int]:
             node = node.setdefault(p, {})
         node[parts[-1]] = data[name]
     return tree, int(data["step"])
+
+
+# --------------------------------------------------------------------- #
+# Orbax checkpoints, through tensorstore
+
+
+def _tensorstore():
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError(
+            "reading or writing an Orbax checkpoint (--checkpoint-dir) "
+            f"needs the tensorstore package: {e}") from e
+    return tensorstore
+
+
+def _ocdbt_spec(directory: str, name: str) -> Dict[str, Any]:
+    return {"driver": "zarr", "kvstore": {
+        "driver": "ocdbt", "base": f"file://{os.path.abspath(directory)}/",
+        "path": f"{name}/"}}
+
+
+def load_orbax_tree(directory: str) -> Dict[str, Any]:
+    """The tree of one Orbax PyTree checkpoint directory of arrays (as the
+    JAX package's `PyTreeCheckpointer().restore` gives a pipeline slot):
+    nested dicts of numpy arrays. Every leaf is opened and read at once
+    (tensorstore futures)."""
+    ts = _tensorstore()
+    with open(os.path.join(directory, "_METADATA")) as fh:
+        meta = json.load(fh)
+    ctx = ts.Context()
+    paths = [[str(k["key"]) for k in e["key_metadata"]]
+             for e in meta["tree_metadata"].values()]
+    opened = [ts.open(_ocdbt_spec(directory, ".".join(keys)), open=True,
+                      context=ctx) for keys in paths]
+    reads = [f.result().read() for f in opened]
+    tree: Dict[str, Any] = {}
+    for keys, read in zip(paths, reads):
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = read.result()
+    return tree
+
+
+def save_orbax_tree(directory: str, tree: Mapping[str, Any]) -> None:
+    """Write a nested dict of arrays as the Orbax PyTree checkpoint the JAX
+    package writes (OCDBT, zarr v2 leaves, `_METADATA`), replacing
+    `directory` (orbax's `force=True`); one tensorstore transaction, so
+    the store commits once."""
+    ts = _tensorstore()
+    directory = os.path.abspath(directory)
+    if os.path.exists(directory):
+        shutil.rmtree(directory)
+    os.makedirs(directory)
+    ctx, txn = ts.Context(), ts.Transaction()
+    leaves = {name: np.ascontiguousarray(arr)
+              for name, arr in _flat_flax(tree).items()}
+    opened = []
+    for name, arr in leaves.items():
+        spec = _ocdbt_spec(directory, name.replace("/", "."))
+        spec["metadata"] = {
+            "shape": list(arr.shape), "chunks": list(arr.shape),
+            "dtype": arr.dtype.str, "compressor": {"id": "zstd", "level": 1},
+            "dimension_separator": "."}
+        opened.append(ts.open(spec, create=True, context=ctx,
+                              transaction=txn))
+    writes = [f.result().write(arr) for f, arr in zip(opened,
+                                                     leaves.values())]
+    for w in writes:
+        w.result()
+    txn.commit_sync()
+    meta = {str(tuple(name.split("/"))): {
+        "key_metadata": [{"key": k, "key_type": 2}
+                         for k in name.split("/")],
+        "value_metadata": {"value_type": "np.ndarray",
+                           "skip_deserialize": False}}
+        for name in leaves}
+    with open(os.path.join(directory, "_METADATA"), "w") as fh:
+        json.dump({"tree_metadata": meta, "use_ocdbt": True,
+                   "use_zarr3": False,
+                   "store_array_data_equal_to_fill_value": True,
+                   "custom_metadata": None}, fh)
+
+
+def load_pipeline_checkpoint(directory: str) -> Tuple[Dict, Dict]:
+    """(det_vars, pose_vars) flax trees of a pipeline checkpoint directory
+    (`det/` and `pose/`, the JAX package's `save_pipeline_checkpoint`);
+    `flax_to_state_dict` turns each into the port's `state_dict`."""
+    return (load_orbax_tree(os.path.join(directory, "det")),
+            load_orbax_tree(os.path.join(directory, "pose")))
+
+
+def save_pipeline_checkpoint(directory: str, det_vars: Mapping,
+                             pose_vars: Mapping) -> None:
+    """Write detector + pose flax trees (`state_dict_to_flax` of port
+    weights) as the JAX package's pipeline checkpoint."""
+    save_orbax_tree(os.path.join(directory, "det"), det_vars)
+    save_orbax_tree(os.path.join(directory, "pose"), pose_vars)
+
+
+def load_pose_checkpoint(directory: str) -> Dict:
+    """The pose slot alone (bottom-up checkpoints have no detector)."""
+    return load_orbax_tree(os.path.join(directory, "pose"))
+
+
+def save_pose_checkpoint(directory: str, pose_vars: Mapping) -> None:
+    save_orbax_tree(os.path.join(directory, "pose"), pose_vars)
+
+
+# --------------------------------------------------------------------- #
+# torch pose_hrnet <-> flax name mapping
+#
+# Official naming (pose_hrnet): conv1/bn1, conv2/bn2, layer1.{k}.conv{c}/
+# bn{c} (+ downsample.0/.1), transition{t}.{i}[.0].{0,1}, stage{s}.{m}.
+# branches.{b}.{k}.conv{c}/bn{c}, stage{s}.{m}.fuse_layers.{i}.{j}[...],
+# final_layer. Ours (and flax's): stem1/2, layer1_{k}.conv{c}
+# (+downsample), transition{t+1}.adapt_/new_{i},
+# stage{s}_module{m}.branch{b}_block{k}, .fuse.up_{j}_{i}/down_{j}_{i}_
+# {step}, head (models/hrnet.py).
+
+
+def _hrnet_pairs(cfg: HRNetConfig) -> List[Tuple[Tuple[str, ...], str, str]]:
+    """[(flax ConvBN module path, torch conv key, torch bn prefix)] of every
+    ConvBN of the model; the head is handled separately."""
+    pairs: List[Tuple[Tuple[str, ...], str, str]] = [
+        (("stem1",), "conv1.weight", "bn1"),
+        (("stem2",), "conv2.weight", "bn2"),
+    ]
+    for k in range(4):
+        for c in (1, 2, 3):
+            pairs.append(((f"layer1_{k}", f"conv{c}"),
+                          f"layer1.{k}.conv{c}.weight", f"layer1.{k}.bn{c}"))
+        if k == 0:  # only the first bottleneck changes channels
+            pairs.append(((f"layer1_{k}", "downsample"),
+                          f"layer1.{k}.downsample.0.weight",
+                          f"layer1.{k}.downsample.1"))
+
+    prev: Tuple[int, ...] = (cfg.bottleneck_channels * 4,)
+    for stage_idx, (n_modules, channels) in enumerate(
+        zip(cfg.stage_modules, cfg.branch_channels)
+    ):
+        t_ours = f"transition{stage_idx + 2}"
+        t_torch = f"transition{stage_idx + 1}"
+        for i, ch in enumerate(channels):
+            if i < len(prev):
+                if prev[i] != ch:
+                    pairs.append(((t_ours, f"adapt_{i}"),
+                                  f"{t_torch}.{i}.0.weight",
+                                  f"{t_torch}.{i}.1"))
+            else:
+                pairs.append(((t_ours, f"new_{i}"),
+                              f"{t_torch}.{i}.0.0.weight",
+                              f"{t_torch}.{i}.0.1"))
+        s_torch = f"stage{stage_idx + 2}"
+        for m in range(n_modules):
+            mod = f"stage{stage_idx + 2}_module{m}"
+            for b in range(len(channels)):
+                for k in range(cfg.blocks_per_branch):
+                    base = f"{s_torch}.{m}.branches.{b}.{k}"
+                    for c in (1, 2):
+                        pairs.append(((mod, f"branch{b}_block{k}", f"conv{c}"),
+                                      f"{base}.conv{c}.weight",
+                                      f"{base}.bn{c}"))
+            n = len(channels)
+            fuse = f"{s_torch}.{m}.fuse_layers"
+            for i in range(n):
+                for j in range(n):
+                    if j > i:
+                        pairs.append(((mod, "fuse", f"up_{j}_{i}"),
+                                      f"{fuse}.{i}.{j}.0.weight",
+                                      f"{fuse}.{i}.{j}.1"))
+                    elif j < i:
+                        for step in range(i - j):
+                            pairs.append((
+                                (mod, "fuse", f"down_{j}_{i}_{step}"),
+                                f"{fuse}.{i}.{j}.{step}.0.weight",
+                                f"{fuse}.{i}.{j}.{step}.1"))
+        prev = channels
+    return pairs
+
+
+def _higherhrnet_head_pairs(
+    num_deconv_blocks: int = 4,
+) -> List[Tuple[Tuple[str, ...], str, str]]:
+    """ConvBN pairs of the deconv residual blocks of the official
+    PoseHigherResolutionNet (`deconv_layers.0.{1+i}.0.*`: each BasicBlock
+    sits in an nn.Sequential of its own, hence the trailing `.0`)."""
+    pairs: List[Tuple[Tuple[str, ...], str, str]] = []
+    for i in range(num_deconv_blocks):
+        base = f"deconv_layers.0.{1 + i}.0"
+        for c in ("conv1", "conv2"):
+            pairs.append(((f"deconv_block{i}", c), f"{base}.{c}.weight",
+                          f"{base}.bn{c[-1]}"))
+    return pairs
+
+
+def _node(tree: Mapping, path: Sequence[str]):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _copy_tree(tree: Mapping) -> Dict:
+    """A nested dict of numpy copies of `tree`'s leaves."""
+    return {k: _copy_tree(v) if isinstance(v, Mapping) else np.array(v)
+            for k, v in tree.items()}
+
+
+def _conv_to_flax(t: np.ndarray) -> np.ndarray:
+    return np.transpose(t, (2, 3, 1, 0))  # OIHW -> HWIO
+
+
+def _conv_to_torch(t: np.ndarray) -> np.ndarray:
+    return np.transpose(t, (3, 2, 0, 1))  # HWIO -> OIHW
+
+
+def _deconv_to_flax(t: np.ndarray) -> np.ndarray:
+    """torch ConvTranspose2d weight (in, out, kh, kw) -> flax ConvTranspose
+    kernel (kh, kw, in, out), spatially flipped (torch's transposed conv
+    is the conv adjoint; flax keeps the kernel unflipped)."""
+    return np.ascontiguousarray(
+        np.transpose(t[:, :, ::-1, ::-1], (2, 3, 0, 1)))
+
+
+def _deconv_to_torch(t: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(
+        np.transpose(t, (2, 3, 0, 1))[:, :, ::-1, ::-1])
+
+
+def _import_pairs(state_dict, params, stats, pairs, strict: bool) -> int:
+    imported = 0
+    for path, conv_key, bn_prefix in pairs:
+        if conv_key not in state_dict:
+            if strict:
+                raise KeyError(conv_key)
+            continue
+        _node(params, path)["conv"]["kernel"] = _conv_to_flax(
+            state_dict[conv_key]).astype(np.float32)
+        bn_p, bn_s = _node(params, path)["bn"], _node(stats, path)["bn"]
+        for leaf, node, torch_leaf in (
+                ("scale", bn_p, "weight"), ("bias", bn_p, "bias"),
+                ("mean", bn_s, "running_mean"), ("var", bn_s, "running_var")):
+            node[leaf] = state_dict[f"{bn_prefix}.{torch_leaf}"].astype(
+                np.float32)
+        imported += 1
+    return imported
+
+
+def _export_pairs(params, stats, pairs) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for path, conv_key, bn_prefix in pairs:
+        out[conv_key] = _conv_to_torch(
+            np.asarray(_node(params, path)["conv"]["kernel"]))
+        bn_p, bn_s = _node(params, path)["bn"], _node(stats, path)["bn"]
+        out[f"{bn_prefix}.weight"] = np.asarray(bn_p["scale"])
+        out[f"{bn_prefix}.bias"] = np.asarray(bn_p["bias"])
+        out[f"{bn_prefix}.running_mean"] = np.asarray(bn_s["mean"])
+        out[f"{bn_prefix}.running_var"] = np.asarray(bn_s["var"])
+    return out
+
+
+def import_torch_hrnet(
+    state_dict: Mapping[str, np.ndarray],
+    flax_vars: Mapping[str, Any],
+    config: HRNetConfig = HRNET_W32,
+    strict: bool = False,
+) -> Dict[str, Any]:
+    """Map a pose_hrnet `state_dict` (numpy values) onto a flax HRNet tree
+    ({'params', 'batch_stats'}, e.g. `state_dict_to_flax` of the port's
+    model); returns a new tree. Missing torch keys are skipped unless
+    `strict` (official checkpoints lack the unused fuse rows of the last
+    stage-4 module)."""
+    params = _copy_tree(flax_vars["params"])
+    stats = _copy_tree(flax_vars["batch_stats"])
+    imported = _import_pairs(state_dict, params, stats,
+                             _hrnet_pairs(config), strict)
+    if "final_layer.weight" in state_dict:
+        params["head"]["kernel"] = _conv_to_flax(
+            state_dict["final_layer.weight"]).astype(np.float32)
+        params["head"]["bias"] = state_dict["final_layer.bias"].astype(
+            np.float32)
+        imported += 1
+    if imported == 0:
+        raise ValueError("no tensors imported — wrong state_dict format?")
+    return {"params": params, "batch_stats": stats}
+
+
+def export_torch_hrnet(flax_vars: Mapping[str, Any],
+                       config: HRNetConfig = HRNET_W32
+                       ) -> Dict[str, np.ndarray]:
+    """Inverse of `import_torch_hrnet`: a pose_hrnet `state_dict` of numpy
+    arrays."""
+    params, stats = flax_vars["params"], flax_vars["batch_stats"]
+    out = _export_pairs(params, stats, _hrnet_pairs(config))
+    out["final_layer.weight"] = _conv_to_torch(
+        np.asarray(params["head"]["kernel"]))
+    out["final_layer.bias"] = np.asarray(params["head"]["bias"])
+    return out
+
+
+def import_torch_higherhrnet(
+    state_dict: Mapping[str, np.ndarray],
+    flax_vars: Mapping[str, Any],
+    config: HRNetConfig = HRNET_W32,
+    num_deconv_blocks: int = 4,
+    strict: bool = False,
+) -> Dict[str, Any]:
+    """Map an official PoseHigherResolutionNet `state_dict` onto a flax
+    HigherHRNet tree: the trunk shares pose_hrnet's names
+    (`_hrnet_pairs`), plus `final_layers.{0,1}` -> head1 / head2, the
+    deconv transposed conv + BN, and the deconv residual blocks."""
+    params = _copy_tree(flax_vars["params"])
+    stats = _copy_tree(flax_vars["batch_stats"])
+    pairs = _hrnet_pairs(config) + _higherhrnet_head_pairs(num_deconv_blocks)
+    imported = _import_pairs(state_dict, params, stats, pairs, strict)
+    for torch_name, ours in (("final_layers.0", "head1"),
+                             ("final_layers.1", "head2")):
+        if f"{torch_name}.weight" in state_dict:
+            params[ours]["kernel"] = _conv_to_flax(
+                state_dict[f"{torch_name}.weight"]).astype(np.float32)
+            params[ours]["bias"] = state_dict[f"{torch_name}.bias"].astype(
+                np.float32)
+            imported += 1
+    if "deconv_layers.0.0.0.weight" in state_dict:
+        params["deconv"]["kernel"] = _deconv_to_flax(
+            state_dict["deconv_layers.0.0.0.weight"]).astype(np.float32)
+        bn = "deconv_layers.0.0.1"
+        params["deconv_bn"]["scale"] = state_dict[f"{bn}.weight"].astype(
+            np.float32)
+        params["deconv_bn"]["bias"] = state_dict[f"{bn}.bias"].astype(
+            np.float32)
+        stats["deconv_bn"]["mean"] = state_dict[
+            f"{bn}.running_mean"].astype(np.float32)
+        stats["deconv_bn"]["var"] = state_dict[
+            f"{bn}.running_var"].astype(np.float32)
+        imported += 1
+    if imported == 0:
+        raise ValueError("no tensors imported — wrong state_dict format?")
+    return {"params": params, "batch_stats": stats}
+
+
+def export_torch_higherhrnet(
+    flax_vars: Mapping[str, Any],
+    config: HRNetConfig = HRNET_W32,
+    num_deconv_blocks: int = 4,
+) -> Dict[str, np.ndarray]:
+    """Inverse of `import_torch_higherhrnet`."""
+    params, stats = flax_vars["params"], flax_vars["batch_stats"]
+    out = _export_pairs(params, stats, _hrnet_pairs(config)
+                        + _higherhrnet_head_pairs(num_deconv_blocks))
+    for torch_name, ours in (("final_layers.0", "head1"),
+                             ("final_layers.1", "head2")):
+        out[f"{torch_name}.weight"] = _conv_to_torch(
+            np.asarray(params[ours]["kernel"]))
+        out[f"{torch_name}.bias"] = np.asarray(params[ours]["bias"])
+    out["deconv_layers.0.0.0.weight"] = _deconv_to_torch(
+        np.asarray(params["deconv"]["kernel"]))
+    bn = "deconv_layers.0.0.1"
+    out[f"{bn}.weight"] = np.asarray(params["deconv_bn"]["scale"])
+    out[f"{bn}.bias"] = np.asarray(params["deconv_bn"]["bias"])
+    out[f"{bn}.running_mean"] = np.asarray(stats["deconv_bn"]["mean"])
+    out[f"{bn}.running_var"] = np.asarray(stats["deconv_bn"]["var"])
+    return out
 
 
 @contextlib.contextmanager

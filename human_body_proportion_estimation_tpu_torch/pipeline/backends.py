@@ -1,6 +1,6 @@
 """Detector backends for the fused forward (port of the JAX package's
-`pipeline/backends.py`: `EfficientDetBackend` on its score-kernel path, and
-`YoloBackend`).
+`pipeline/backends.py`: `EfficientDetBackend` on its score-kernel path,
+`YoloBackend` and `SSDBackend`).
 
 A backend is an `nn.Module` that maps a batch of det-input images to
 padded person slots (boxes_px yxyx in det-input space, scores, valid),
@@ -19,6 +19,10 @@ from human_body_proportion_estimation_tpu_torch.models.anchors import (
 from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
     EfficientDet,
     person_slots,
+)
+from human_body_proportion_estimation_tpu_torch.models.ssd_mobilenet import (
+    SSDMobileNetV1,
+    ssd_postprocess,
 )
 from human_body_proportion_estimation_tpu_torch.models.yolov5 import (
     YoloV5,
@@ -107,4 +111,41 @@ class YoloBackend(torch.nn.Module):
         return select_persons(
             yxyx, res.scores, res.classes, res.valid, det_threshold,
             self.PERSON_CLASS, det.max_persons,
+        )
+
+
+class SSDBackend(torch.nn.Module):
+    """SSD-MobileNetV1 slot (the JAX package's default detector, with the
+    real weights of the reference's checked-in ssd.tflite): the det-input
+    image resized to 300x300 as `jax.image.resize(..., "linear",
+    antialias=False)` does, the forward, `ssd_postprocess` for the whole
+    batch in ONE NMS sweep launch ([B, 128] class-offset candidates), the
+    normalized yxyx boxes mapped to det-input pixels, then the person
+    slots (class 0 of the background-stripped ids)."""
+
+    INPUT_SIZE = 300
+    PERSON_CLASS = 0  # background-stripped tflite ids
+
+    def __init__(self, model: SSDMobileNetV1, config: PipelineConfig,
+                 anchors: torch.Tensor):
+        super().__init__()
+        self.model = model
+        self.config = config
+        # [1917, 4] normalized (cy, cx, h, w), from the blob; a buffer of
+        # the module (left out of its state_dict), as EfficientDet's
+        self.register_buffer("anchors", anchors.float(), persistent=False)
+
+    def forward(self, images_f32: torch.Tensor,
+                det_threshold: torch.Tensor):
+        det = self.config.detector
+        s = self.INPUT_SIZE
+        ssd_in = img_ops._resize(images_f32, s, s, "linear", False)
+        box_regs, logits = self.model(ssd_in)
+        res = ssd_postprocess(box_regs, logits, self.anchors)
+        h, w = float(det.input_height), float(det.input_width)
+        scale = torch.tensor([h, w, h, w], dtype=torch.float32,
+                             device=res.boxes.device)
+        return select_persons(
+            res.boxes * scale, res.scores, res.classes, res.valid,
+            det_threshold, self.PERSON_CLASS, det.max_persons,
         )

@@ -378,15 +378,18 @@ class BottomUpProgram(torch.nn.Module):
 
 def build_default(device: str | torch.device = "cuda",
                   dtype: torch.dtype = torch.bfloat16,
-                  mesh=None) -> BottomUpPipeline:
+                  mesh=None, pose_state=None) -> BottomUpPipeline:
     """The bottom-up pipeline the server's `--bottom-up` and the CLI build:
-    the committed synthetic-certified HigherHRNet where the repository
-    holds it (`models.weights.maybe_load_certified(bottom_up=True)`),
-    labelled so, else a random HigherHRNet labelled "random"; over
-    `mesh` when given."""
-    _, pose_state = maybe_load_certified(bottom_up=True)
+    `pose_state` (a checkpoint's HigherHRNet, labelled "real") when given,
+    else the committed synthetic-certified HigherHRNet where the
+    repository holds it (`models.weights.maybe_load_certified(
+    bottom_up=True)`), labelled so, else a random HigherHRNet labelled
+    "random"; over `mesh` when given."""
+    certified = pose_state is None
+    if certified:
+        _, pose_state = maybe_load_certified(bottom_up=True)
     pipeline = BottomUpPipeline(pose_state=pose_state, device=device,
                                 dtype=dtype, mesh=mesh)
-    if pose_state is not None:
+    if certified and pose_state is not None:
         pipeline.weights_origin["pose"] = "synthetic-certified"
     return pipeline

@@ -22,8 +22,10 @@ artifact serves on the device type it was exported on: one exported on
 the GPU holds CUDA constants, and restoring it elsewhere raises.
 
 The JAX package writes orbax `det/` and `pose/` beside its StableHLO
-program; the port does not (it has no orbax writer, ROADMAP.md item 17),
-and neither package reads the other's artifact.
+program; the port's program holds its weights (its Orbax writer,
+`models.weights.save_pipeline_checkpoint`, needs tensorstore, which a
+serving machine may lack), and neither package reads the other's
+artifact.
 """
 
 from __future__ import annotations

@@ -37,6 +37,9 @@ from human_body_proportion_estimation_tpu_torch.models.hrnet import (
 from human_body_proportion_estimation_tpu_torch.models.layers import (
     init_random,
 )
+from human_body_proportion_estimation_tpu_torch.models.ssd_mobilenet import (
+    load_ssd,
+)
 from human_body_proportion_estimation_tpu_torch.models.weights import (
     default_certified_checkpoint,
     flax_to_state_dict,
@@ -57,6 +60,7 @@ from human_body_proportion_estimation_tpu_torch.parallel.mesh import (
 )
 from human_body_proportion_estimation_tpu_torch.pipeline.backends import (
     EfficientDetBackend,
+    SSDBackend,
     YoloBackend,
 )
 from human_body_proportion_estimation_tpu_torch.pipeline.full import (
@@ -195,10 +199,11 @@ class InferencePipeline:
 
     `detector`: the detector slot, `cfg.detector.name` by default:
     "efficientdet_lite4", "efficientdet_lite0", or "yolov5s" / "yolov5m" /
-    "yolov5l" (the JAX package's `YoloBackend`). "ssd_mobilenet" is not
-    ported yet and raises ValueError. The EfficientDet architecture comes
-    from the slot name unless `det_config` is given, as in the JAX
-    package, so that a Lite0 slot never gets the Lite4 graph.
+    "yolov5l" (the JAX package's `YoloBackend`), or "ssd_mobilenet"
+    (`SSDBackend`, the JAX package's default). The EfficientDet
+    architecture comes from the slot name unless `det_config` is given,
+    as in the JAX package, so that a Lite0 slot never gets the Lite4
+    graph.
 
     The pose slot is `cfg.pose.name`: "hrnet_w32", "hrnet_w48" or
     "higherhrnet" (`models.higherhrnet.HigherHRNetHeatmaps`, heatmaps at
@@ -207,7 +212,12 @@ class InferencePipeline:
 
     `det_state` / `pose_state`: port `state_dict`s (`load_certified_states`,
     or `models.weights.flax_to_state_dict` of flax variables), labelled
-    "real" in `weights_origin` (what /health reports). A slot given no
+    "real" in `weights_origin` (what /health reports). The SSD slot's
+    state also holds its anchor table under "anchors"
+    (`models.ssd_mobilenet.ssd_state_dict`); given none, the SSD slot
+    reads the reference's ssd.tflite (`models.ssd_mobilenet.load_ssd`,
+    ValueError naming the path when the file is absent: JAX's SSD is
+    never random), labelled "real". A slot given no
     state takes the committed certified checkpoint where its architecture
     is the certified one (the EfficientDet-Lite4 detector, the HRNet-W32
     pose), labelled "synthetic-certified" as the JAX server labels it;
@@ -292,10 +302,13 @@ class InferencePipeline:
                              0 if det_config == EFFICIENTDET_LITE4 else None)
             self.backend = EfficientDetBackend(
                 model.to(self.device).eval(), cfg, self.device)
+        elif detector == "ssd_mobilenet":
+            model, anchors = load_ssd(det_state, dtype=dtype,
+                                      device=self.device)
+            det_label = "real"   # the tflite's weights, or the caller's
+            self.backend = SSDBackend(model, cfg, anchors)
         else:
-            raise ValueError(
-                f"detector {detector!r} is not ported yet (ROADMAP.md "
-                "item 10: ssd_mobilenet)")
+            raise ValueError(f"unknown detector {detector!r}")
 
         pose_name = cfg.pose.name
         if pose_name not in POSE_CONFIGS:

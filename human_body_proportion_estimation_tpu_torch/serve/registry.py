@@ -20,9 +20,13 @@ whose modules it has:
     ``images`` f32 NCHW [B, 3, 640, 640] (already /255) -> ``output``
     [B, 25200, 85] decoded predictions; the NMS runs on the client.
 
-The JAX package's ``ssd_mobilenet`` comes with the port's SSD slot
-(ROADMAP.md item 10); until then it is not registered, so it answers as
-an unknown name does (NOT_FOUND / 404).
+  * ``ssd_mobilenet`` (`modules/human_detector.py:31-38`) — the SSD
+    detector with the real weights of the reference's ssd.tflite, batch 1:
+    a uint8 image of any size -> the TFLite_Detection_PostProcess outputs
+    ``detection_boxes`` (normalized y1x1y2x2), ``detection_classes``
+    (0-based, person 0), ``detection_scores`` and ``num_detections``.
+    Always registered and loaded lazily: with the file absent its load
+    fails naming the path, as the JAX registry's does.
 
 Clients introspect each model's inputs, outputs and max_batch_size before
 building requests (`modules/triton_utils.py:54-72` ``parse_model_grpc``):
@@ -845,6 +849,68 @@ def _yolo_entry(cfg, device, variant: str, model=None,
     )
 
 
+def _ssd_entry(cfg, device, model=None, anchors=None) -> ModelEntry:
+    """`ssd_mobilenet`: the reference's TFLite alternative detector as a
+    repository model, whose weights are always real (the checked-in
+    ssd.tflite, reference `modules/human_detector.py:10`). The wire
+    contract is the TFLite_Detection_PostProcess outputs the reference
+    reads (`human_detector.py:31-38`): normalized y1x1y2x2 boxes, 0-based
+    background-stripped classes (person 0), scores, num_detections.
+    `model` / `anchors`: the serving pipeline's SSD and its anchor table
+    when its detector slot is SSD; else the entry reads the tflite at its
+    first load (ValueError naming the path when absent). The
+    wire image is resized to 300x300 with cv2 on the host, the
+    postprocess is one NMS sweep launch ([1, 128])."""
+    nd = 10  # TFLite_Detection_PostProcess max_detections
+
+    def build():
+        import torch
+
+        from human_body_proportion_estimation_tpu_torch.models.ssd_mobilenet import (  # noqa: E501
+            load_ssd,
+            ssd_postprocess,
+        )
+        from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+            resize_for_detector,
+        )
+
+        net, table = model, anchors
+        if net is None:
+            net, table = load_ssd(device=device)
+
+        @torch.inference_mode()
+        def run(inputs):
+            img = resize_for_detector(inputs["image"][0], 300, 300)[None]
+            box_regs, logits = net(_to_device(img, device))
+            det = ssd_postprocess(box_regs, logits, table)
+            boxes, scores, classes, valid = (
+                t.cpu().numpy() for t in (det.boxes, det.scores,
+                                          det.classes, det.valid))
+            return {
+                "detection_boxes": boxes.astype(np.float32),
+                "detection_classes": classes.astype(np.float32),
+                "detection_scores": scores.astype(np.float32),
+                "num_detections": valid.sum(-1).astype(np.float32),
+            }
+
+        return run
+
+    return ModelEntry(
+        name="ssd_mobilenet",
+        platform="pytorch",
+        inputs=[TensorSpec("image", "UINT8", (1, -1, -1, 3))],
+        outputs=[
+            TensorSpec("detection_boxes", "FP32", (1, nd, 4)),
+            TensorSpec("detection_classes", "FP32", (1, nd)),
+            TensorSpec("detection_scores", "FP32", (1, nd)),
+            TensorSpec("num_detections", "FP32", (1,)),
+        ],
+        max_batch_size=0,
+        weights="real",  # ssd.tflite import, never random
+        build=build,
+    )
+
+
 def _build_edet_core(cfg, det_config, device, detector=None):
     """The shared lazily built detection core of the three EfficientDet
     models: the detector (shared, or built on `device`), its anchors on
@@ -1114,12 +1180,13 @@ def _edet_entries(cfg, det_config, device, detector=None, pose=None,
 
 def build_registry(pipeline=None, device=None, mesh=None) -> ModelRegistry:
     """The default repository (the reference's model-repo roster, README
-    :71-80, less the models of the slots not ported yet), sharing the
+    :71-80), sharing the
     serving pipeline's pose model and detector when given, so that
     registry inference adds no device memory: an HRNet pose with `hrnet`
     and the EfficientDet models' ensemble, a HigherHRNet pose with
     `higherhrnet`, the EfficientDet detector (Lite4 or Lite0) with the
-    EfficientDet models, a YOLOv5 with the `yolov5*` entry of its variant;
+    EfficientDet models, a YOLOv5 with the `yolov5*` entry of its variant,
+    an SSD with `ssd_mobilenet`;
     a bottom-up pipeline's HigherHRNet with `higherhrnet` (the other models
     are then built as with no pipeline, as in the JAX registry). An
     artifact's pipeline (`pipeline.export.ArtifactPipeline`) has no module
@@ -1148,6 +1215,7 @@ def build_registry(pipeline=None, device=None, mesh=None) -> ModelRegistry:
         VARIANTS,
     )
     from human_body_proportion_estimation_tpu_torch.pipeline.backends import (
+        SSDBackend,
         YoloBackend,
     )
     from human_body_proportion_estimation_tpu_torch.pipeline.bottomup import (
@@ -1162,6 +1230,7 @@ def build_registry(pipeline=None, device=None, mesh=None) -> ModelRegistry:
     det_config = EFFICIENTDET_LITE4
     det_weights = pose_weights = higher_weights = "random"
     yolo: Dict[str, Tuple[Any, str]] = {}
+    ssd: Tuple[Any, ...] = ()
     if mesh is None:
         mesh = getattr(pipeline, "mesh", None)
     if mesh is not None:
@@ -1185,6 +1254,10 @@ def build_registry(pipeline=None, device=None, mesh=None) -> ModelRegistry:
                 backend.model.config)
             if variant is not None:
                 yolo[variant] = (backend.model, origin["detector"])
+        elif isinstance(backend, SSDBackend):
+            # the serving detector is the SSD: `ssd_mobilenet` shares it
+            # and its anchors; the EfficientDet models build their own
+            ssd = (backend.model, backend.anchors)
         else:
             det = backend.detector
             det_config, det_weights = det.config, origin["detector"]
@@ -1198,6 +1271,7 @@ def build_registry(pipeline=None, device=None, mesh=None) -> ModelRegistry:
                     mesh=mesh),
         _yolo_entry(cfg, device, "yolov5s", *yolo.get("yolov5s", ()),
                     mesh=mesh),
+        _ssd_entry(cfg, device, *ssd),
         *_edet_entries(cfg, det_config, device, det, pose,
                        det_weights=det_weights, pose_weights=pose_weights),
     ):

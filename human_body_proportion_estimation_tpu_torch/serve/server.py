@@ -46,7 +46,8 @@ from typing import Any, Dict, List
 import numpy as np
 
 from human_body_proportion_estimation_tpu_torch.cli.common import (
-    NOT_PORTED_DETECTORS,
+    checkpoint_states,
+    option_problems,
 )
 from human_body_proportion_estimation_tpu_torch.ops import (
     proportions as prop_ops,
@@ -888,14 +889,6 @@ def create_server(app: ServingApp, host: str, port: int) -> ThreadingHTTPServer:
     return _Server((host, port), make_handler(app))
 
 
-# options of the JAX server that the port does not serve yet, and the
-# ROADMAP.md item that brings each
-_NOT_YET = (
-    ("checkpoint_dir", "--checkpoint-dir", "item 17 (importers: orbax "
-                                           "checkpoints)"),
-)
-
-
 def build_parser() -> argparse.ArgumentParser:
     """The JAX server's flags, option for option."""
     parser = argparse.ArgumentParser(
@@ -911,15 +904,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--detector", default="ssd_mobilenet",
         choices=["efficientdet_lite4", "efficientdet_lite0",
                  "ssd_mobilenet", "yolov5s", "yolov5m"],
-        help="default ssd_mobilenet, as the JAX server (not ported yet: "
-             "exits); efficientdet_lite4 serves the committed "
+        help="default ssd_mobilenet, as the JAX server: the real weights "
+             "of the reference's ssd.tflite (exits 2 naming the file when "
+             "it is absent); efficientdet_lite4 serves the committed "
              "synthetic-certified weights, efficientdet_lite0 / yolov5s / "
              "yolov5m a random detector (no weights for them are in the "
-             "repository) before the certified HRNet-W32",
+             "repository), each before the certified HRNet-W32",
     )
     parser.add_argument("--checkpoint-dir", default=None,
                         help="orbax checkpoint dir with det/pose params "
-                             "(not ported yet: exits)")
+                             "(read through tensorstore; the SSD detector "
+                             "takes only its pose slot)")
     parser.add_argument(
         "--artifact-dir", default=None,
         help="serve from an exported artifact directory (torch.export "
@@ -946,15 +941,14 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    for attr, flag, item in _NOT_YET:
-        if getattr(args, attr):
-            parser.error(f"{flag} is not ported yet: ROADMAP.md {item}")
     # --bottom-up and --artifact-dir never read --detector (the JAX server
     # returns before it does), so the default ssd_mobilenet serves them
-    if (not args.bottom_up and not args.artifact_dir
-            and args.detector in NOT_PORTED_DETECTORS):
-        parser.error(f"--detector {args.detector} is not ported yet: "
-                     f"ROADMAP.md {NOT_PORTED_DETECTORS[args.detector]}")
+    # whether ssd.tflite is there or not; the artifact reads no checkpoint
+    problems = option_problems(
+        args.detector, None if args.artifact_dir else args.checkpoint_dir,
+        bottom_up=bool(args.bottom_up or args.artifact_dir))
+    if problems:
+        parser.error("; ".join(problems))
     if args.grpc_port:
         # before any model is built: a server asked for gRPC never serves
         # HTTP alone without saying so
@@ -986,8 +980,8 @@ def main(argv=None):
     if args.artifact_dir:
         _serve(args, build_artifact_pipeline(args.artifact_dir, mesh))
         return
-    _serve(args, build_bottomup_pipeline(mesh) if args.bottom_up
-           else build_pipeline(args, mesh))
+    _serve(args, build_bottomup_pipeline(args.checkpoint_dir, mesh)
+           if args.bottom_up else build_pipeline(args, mesh))
 
 
 def build_artifact_pipeline(directory: str, mesh=None):
@@ -1011,10 +1005,12 @@ def build_artifact_pipeline(directory: str, mesh=None):
     return pipeline
 
 
-def build_bottomup_pipeline(mesh=None):
+def build_bottomup_pipeline(checkpoint_dir=None, mesh=None):
     """The `--bottom-up` pipeline on the GPU, or over `mesh`
-    (`pipeline.bottomup.build_default`), announced as the JAX server announces it: the
-    certified bottom-up checkpoint's path, or a loud warning at random."""
+    (`pipeline.bottomup.build_default`), with the pose slot of
+    `checkpoint_dir` when given, announced as the JAX server announces
+    it: the certified bottom-up checkpoint's path, or a loud warning at
+    random."""
     from human_body_proportion_estimation_tpu_torch.models.weights import (
         default_certified_bottomup_checkpoint,
     )
@@ -1022,7 +1018,13 @@ def build_bottomup_pipeline(mesh=None):
         build_default,
     )
 
-    pipeline = build_default(device="cuda", mesh=mesh)
+    pose_state = None
+    if checkpoint_dir:
+        # the checkpoint layout of the top-down pipeline; the detector
+        # slot is not read
+        pose_state = checkpoint_states(checkpoint_dir)[1]
+    pipeline = build_default(device="cuda", mesh=mesh,
+                             pose_state=pose_state)
     if pipeline.weights_origin["pose"] == "synthetic-certified":
         print("serving committed synthetic-certified bottom-up weights "
               f"({default_certified_bottomup_checkpoint()})", flush=True)
@@ -1035,20 +1037,27 @@ def build_bottomup_pipeline(mesh=None):
 
 def build_pipeline(args, mesh=None) -> InferencePipeline:
     """The serving pipeline of `main`, on the GPU or over `mesh`
-    (`--data-parallel`), announced as the JAX server announces it (the
-    certified checkpoint's slots, and a loud warning for slots at
-    random)."""
+    (`--data-parallel`), with the slots of `--checkpoint-dir` when given
+    (the pose slot alone for the SSD detector, as in JAX), announced as
+    the JAX server announces it (the certified checkpoint's slots, and a
+    loud warning for slots at random)."""
     from human_body_proportion_estimation_tpu_torch.models.weights import (
         default_certified_checkpoint,
     )
 
+    det_state = pose_state = None
+    if getattr(args, "checkpoint_dir", None):
+        det_state, pose_state = checkpoint_states(args.checkpoint_dir,
+                                                  args.detector)
     pipeline = InferencePipeline(device="cuda", detector=args.detector,
-                                 mesh=mesh)
+                                 mesh=mesh, det_state=det_state,
+                                 pose_state=pose_state)
     origin = pipeline.weights_origin
     certified = [k for k, v in origin.items() if v == "synthetic-certified"]
-    print("serving committed synthetic-certified weights for "
-          f"{'+'.join(certified)} ({default_certified_checkpoint()})",
-          flush=True)
+    if certified:
+        print("serving committed synthetic-certified weights for "
+              f"{'+'.join(certified)} ({default_certified_checkpoint()})",
+              flush=True)
     if "random" in origin.values():
         print(
             "WARNING: serving RANDOM-INIT weights for "

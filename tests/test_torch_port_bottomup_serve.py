@@ -13,10 +13,10 @@ values to 1e-3; the hbpe gRPC Estimate of the
 port against its own file route; the registry's `higherhrnet` runs the
 pipeline's module (the JAX registry shares a bottom-up pipeline's too);
 and the server's flag matrix: `--bottom-up` with the default detector
-(`ssd_mobilenet`) serves, with `--checkpoint-dir` it exits 2 naming the
-ROADMAP item, with `--data-parallel 2` (alone or beside `--artifact-dir`)
-it exits 2 naming the CUDA devices it lacks (tests/conftest.py hides
-every GPU).
+(`ssd_mobilenet`) serves, with `--checkpoint-dir` on a machine without
+tensorstore it exits 2 naming the package, with `--data-parallel 2`
+(alone or beside `--artifact-dir`) it exits 2 naming the CUDA devices
+it lacks (tests/conftest.py hides every GPU).
 """
 
 import json
@@ -210,7 +210,8 @@ def test_registry_higherhrnet_is_the_pipelines_module(servers):
     ref_idx = {r["name"]: r["weights"] for r in jreg.index()}
     assert got_idx["higherhrnet"] == ref_idx["higherhrnet"] == "real"
     assert got_idx["hrnet"] == ref_idx["hrnet"] == "random"
-    assert "ssd_mobilenet" not in got_idx
+    # the SSD is registered (built at its first load, from ssd.tflite)
+    assert got_idx["ssd_mobilenet"] == "real"
     calls = []
     hook = tpipe.model.register_forward_hook(lambda *a: calls.append(1))
     x = np.random.default_rng(7).uniform(0, 1, (2, 3, 64, 64)).astype(
@@ -274,7 +275,7 @@ def test_bottom_up_serves_with_the_default_detector(certified, monkeypatch,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--checkpoint-dir", "x"], "item 17"),
+    (["--checkpoint-dir", "x"], "needs the tensorstore package"),
     (["--data-parallel", "2"], "--data-parallel 2: 2 devices asked for"),
     (["--artifact-dir", "x", "--data-parallel", "2"],
      "--data-parallel 2: 2 devices asked for"),
@@ -284,12 +285,14 @@ def test_bottom_up_exits_on_options_not_ported(extra, item, monkeypatch,
     def no_model(*a, **k):
         raise AssertionError("a model was built")
 
+    from human_body_proportion_estimation_tpu_torch.cli import common
+
     monkeypatch.setattr(tbottomup, "BottomUpPipeline", no_model)
+    # a machine without tensorstore (--checkpoint-dir reads through it)
+    monkeypatch.setattr(common, "has_tensorstore", lambda: False)
     with pytest.raises(SystemExit) as exc:
         tserver.main(["--bottom-up", *extra])
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    # item 17 is not ported yet; --data-parallel is (item 16), and this
-    # machine has fewer than the two CUDA devices it asks for
-    assert (f"ROADMAP.md {item}" if item.startswith("item") else item) \
-        in err
+    # this machine has fewer than the two CUDA devices --data-parallel 2
+    # asks for
+    assert item in capsys.readouterr().err

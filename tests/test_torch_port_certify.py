@@ -2,8 +2,8 @@
 package's: `models/weights` (`state_dict_to_flax`, the compact and the
 training checkpoints), the head-score weight cache across a train step,
 and `cli/certify` / `cli/certify_bottomup` (flags, report keys, the
-options not ported yet, no fallback to the CPU). The CLIs run end to
-end with `--smoke --cpu` on a few steps."""
+options refused before anything is built, no fallback to the CPU). The
+CLIs run end to end with `--smoke --cpu` on a few steps."""
 
 import argparse
 import ast
@@ -25,6 +25,9 @@ from human_body_proportion_estimation_tpu.models import weights as jweights
 from human_body_proportion_estimation_tpu.models.hrnet import (
     HRNet as JHRNet,
     HRNetConfig as JHRConfig,
+)
+from human_body_proportion_estimation_tpu_torch.models.tflite_import import (
+    DEFAULT_TFLITE_PATH,
 )
 from human_body_proportion_estimation_tpu_torch.cli import (
     certify as tcli,
@@ -293,13 +296,14 @@ def test_certify_bottomup_smoke_runs_end_to_end_with_the_jax_report(
 
 
 @pytest.mark.parametrize("main,argv,item", [
-    (tcli.main, ["--detector", "ssd"], "item 10"),
+    (tcli.main, ["--detector", "ssd"], DEFAULT_TFLITE_PATH),
     (tcli.main, ["--emit-compact"], "PATH"),
     (tcli.main, ["--emit-compact", "default"], "PATH"),
     (tcli_bu.main, ["--emit-compact"], "PATH"),
 ], ids=["ssd", "bare-emit", "default-emit", "bottomup-bare-emit"])
 def test_options_not_ported_exit_2(main, argv, item, tmp_path, capsys):
-    """Before anything is built: `--detector ssd` names ROADMAP.md item 10;
+    """Before anything is built: `--detector ssd` names the reference's
+    ssd.tflite, absent here (JAX's SSD is never random);
     `--emit-compact` without a path (JAX writes the reference package's
     committed checkpoint there) asks for one."""
     with pytest.raises(SystemExit) as exc:

@@ -22,6 +22,9 @@ import numpy as np
 import pytest
 import torch
 
+from human_body_proportion_estimation_tpu_torch.models.tflite_import import (
+    DEFAULT_TFLITE_PATH,
+)
 from human_body_proportion_estimation_tpu_torch.ops import build, kernels
 from human_body_proportion_estimation_tpu_torch.pipeline.export import (
     FORMAT_VERSION,
@@ -382,22 +385,26 @@ def _parser_of(main):
 
 
 @pytest.mark.parametrize("argv,item", [
-    ([], "item 10"),
+    ([], DEFAULT_TFLITE_PATH),
     (["--detector", "efficientdet_lite4", "--checkpoint-dir", "x"],
-     "item 17"),
+     "needs the tensorstore package"),
 ])
 def test_export_cli_exits_on_options_not_ported(argv, item, tmp_path,
-                                                capsys):
-    """The JAX default detector (ssd_mobilenet) and --checkpoint-dir exit 2
-    naming their ROADMAP item, before any model is built."""
+                                                capsys, monkeypatch):
+    """Before any model is built, exit 2 naming the reason: the JAX
+    default detector (ssd_mobilenet) without the reference's ssd.tflite
+    (absent here), --checkpoint-dir on a machine without tensorstore
+    (hidden here)."""
     from human_body_proportion_estimation_tpu_torch.cli import (
+        common,
         export_artifact as tcli,
     )
 
+    monkeypatch.setattr(common, "has_tensorstore", lambda: False)
     with pytest.raises(SystemExit) as exc:
         tcli.main(["--out", str(tmp_path / "a"), *argv])
     assert exc.value.code == 2
-    assert f"ROADMAP.md {item}" in capsys.readouterr().err
+    assert item in capsys.readouterr().err
     assert not (tmp_path / "a").exists()
 
 
@@ -427,8 +434,10 @@ def test_export_cli_writes_an_artifact(models, tmp_path, monkeypatch,
     tcli.main(["--cpu", "--detector", "yolov5m", "--batch-size", "2",
                "--out", str(out), "--compile-cache-dir",
                str(tmp_path / "cache")])
+    # no --checkpoint-dir: no checkpoint slots, the JAX CLI's defaults
     assert calls == [dict(device="cpu", dtype=torch.float32,
-                          detector="yolov5m")]
+                          detector="yolov5m", det_state=None,
+                          pose_state=None)]
     assert build.BUILD_DIR == str(tmp_path / "cache")
     printed = capsys.readouterr().out
     assert ("WARNING: exporting RANDOM-INIT weights for detector — the "
@@ -441,6 +450,47 @@ def test_export_cli_writes_an_artifact(models, tmp_path, monkeypatch,
     np.testing.assert_array_equal(
         pipe.infer_serving(_images()[:2], 175.0, 0.5),
         models.tpipe.infer_serving(_images()[:2], 175.0, 0.5))
+
+
+def test_export_cli_default_detector_with_its_file(models, tmp_path,
+                                                  monkeypatch, capsys):
+    """With the reference's ssd.tflite present, the default invocation
+    (--detector ssd_mobilenet, as the JAX CLI) passes the option check,
+    builds the SSD slot's pipeline with no state (the pipeline reads the
+    file; here stood in by the tiny pipeline, labelled as the SSD slot
+    labels itself), warns of no random slot and writes an artifact that
+    restores with those labels."""
+    from human_body_proportion_estimation_tpu_torch.cli import (
+        export_artifact as tcli,
+    )
+    from human_body_proportion_estimation_tpu_torch.models import (
+        tflite_import,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline import host
+
+    present = tmp_path / "ssd.tflite"
+    present.write_bytes(b"")
+    monkeypatch.setattr(tflite_import, "DEFAULT_TFLITE_PATH", str(present))
+    calls = []
+    origin = {"detector": "real", "pose": "synthetic-certified"}
+
+    def stand_in(**kw):
+        calls.append(kw)
+        return types.SimpleNamespace(
+            config=models.tcfg, device=torch.device("cpu"),
+            program=models.tpipe.program, weights_origin=dict(origin))
+
+    monkeypatch.setattr(host, "InferencePipeline", stand_in)
+    out = tmp_path / "art"
+    tcli.main(["--cpu", "--batch-size", "2", "--out", str(out)])
+    assert calls == [dict(device="cpu", dtype=torch.float32,
+                          detector="ssd_mobilenet", det_state=None,
+                          pose_state=None)]
+    printed = capsys.readouterr().out
+    assert "WARNING" not in printed
+    assert f"exported serving artifact to {out} (detector=ssd_mobilenet, " \
+           "batch_size=2)" in printed
+    assert ArtifactPipeline(str(out), device="cpu").weights_origin == origin
 
 
 def test_server_artifact_dir_with_data_parallel_exits(artifact_dir, capsys):

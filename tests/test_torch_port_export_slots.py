@@ -126,7 +126,9 @@ def test_export_cli_bottom_up_writes_an_artifact(tmp_path, monkeypatch,
     out = tmp_path / "bu"
     tcli.main(["--bottom-up", "--cpu", "--batch-size", "2", "--out",
                str(out)])
-    assert calls == [dict(device="cpu", dtype=torch.float32)]
+    # no --checkpoint-dir: no checkpoint pose slot
+    assert calls == [dict(device="cpu", dtype=torch.float32,
+                          pose_state=None)]
     printed = capsys.readouterr().out
     assert ("WARNING: exporting RANDOM-INIT HigherHRNet — the artifact will "
             "serve garbage (recorded in meta.json weights_origin)") in printed

@@ -10,7 +10,8 @@ against the JAX package's, on the CPU.
   truth: the same JSON, and the same predictions and ground truths fed to
   the metrics (boxes and keypoints 1e-4 px, scores 1e-4);
 - `cli/evaluate.main`'s flags: the JAX CLI's; `--detector ssd_mobilenet`
-  (the default) and `--checkpoint-dir` exit 2 naming the ROADMAP item.
+  (the default) without its ssd.tflite and `--checkpoint-dir` without
+  tensorstore exit 2 naming the reason.
 """
 
 import json
@@ -21,6 +22,9 @@ import pytest
 
 import human_body_proportion_estimation_tpu.metrics as jmetrics
 import human_body_proportion_estimation_tpu_torch.metrics as tmetrics
+from human_body_proportion_estimation_tpu_torch.models.tflite_import import (
+    DEFAULT_TFLITE_PATH,
+)
 from human_body_proportion_estimation_tpu_torch.metrics import (
     average_precision,
     detection_ap,
@@ -308,15 +312,16 @@ def test_evaluate_flags_are_the_jax_clis(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ([], "item 10"),
+    ([], DEFAULT_TFLITE_PATH),
     (["--detector", "efficientdet_lite4", "--checkpoint-dir", "x"],
-     "item 17"),
+     "needs the tensorstore package"),
 ])
 def test_evaluate_exits_on_options_not_ported(extra, item, tmp_path, capsys,
                                               monkeypatch):
-    """The JAX default detector (ssd_mobilenet) and --checkpoint-dir exit 2
-    naming their ROADMAP item, before any model is built; the compile
-    cache flags are accepted."""
+    """Before any model is built, exit 2 naming the reason: the JAX
+    default detector (ssd_mobilenet) without the reference's ssd.tflite
+    (absent here), --checkpoint-dir on a machine without tensorstore
+    (hidden here); the compile cache flags are accepted."""
     from human_body_proportion_estimation_tpu_torch.cli import common
     from human_body_proportion_estimation_tpu_torch.ops import build
     from human_body_proportion_estimation_tpu_torch.cli import (
@@ -330,9 +335,10 @@ def test_evaluate_exits_on_options_not_ported(extra, item, tmp_path, capsys,
     # it back afterwards
     monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     monkeypatch.setattr(common, "InferencePipeline", no_model)
+    monkeypatch.setattr(common, "has_tensorstore", lambda: False)
     with pytest.raises(SystemExit) as exc:
         teval.main(["--annotations", str(tmp_path / "a.json"),
                     "--images-dir", str(tmp_path), "--no-compile-cache",
                     "--compile-cache-dir", str(tmp_path), *extra])
     assert exc.value.code == 2
-    assert f"ROADMAP.md {item}" in capsys.readouterr().err
+    assert item in capsys.readouterr().err

@@ -88,6 +88,21 @@ def test_generate_anchors_identical(hw):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("hw,levels", [((640, 640), (3, 7)),
+                                       ((320, 320), (3, 7)),
+                                       ((480, 640), (3, 7)),
+                                       ((97, 133), (2, 6))])
+def test_feature_shapes_identical(hw, levels):
+    """Each level's (H, W), rounded up, as JAX's; `generate_anchors` lays
+    one cell of anchors on each of their points."""
+    ref = janchors.feature_shapes(janchors.AnchorConfig(*levels), *hw)
+    cfg = tanchors.AnchorConfig(*levels)
+    got = tanchors.feature_shapes(cfg, *hw)
+    assert got == ref and all(isinstance(v, int) for s in got for v in s)
+    n = len(tanchors.generate_anchors(cfg, *hw))
+    assert n == sum(h * w for h, w in got) * cfg.anchors_per_cell
+
+
 def test_decode_boxes_matches():
     """1e-5 relative: exp() may differ by an ulp between XLA and ATen."""
     rng = np.random.default_rng(2)

@@ -1,5 +1,7 @@
 """Package-level guarantees of the port: it imports without JAX, flax, optax,
-orbax or the JAX package, and its HTTP edge and registry without grpc or protobuf; the
+orbax or the JAX package (and without importing TensorFlow or
+tensorstore, which only the weight readers load when called), and its
+HTTP edge and registry without grpc or protobuf; the
 committed certified checkpoint converts into the
 full-width port models with every tensor placed; entry points default to
 CUDA and do not fall back to the CPU."""
@@ -23,7 +25,7 @@ import human_body_proportion_estimation_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 62, names
+assert len(names) >= 67, names
 for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "serve.hbpe_pb2", "serve.kserve_pb2", "serve.wire",
              "serve.client", "serve.perf", "models.higherhrnet",
@@ -36,12 +38,18 @@ for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "training.certify_bottomup", "cli.certify",
              "cli.certify_bottomup", "pipeline.export", "cli.export_artifact",
              "utils.compile_cache", "models.flax_init", "parallel",
-             "parallel.mesh", "parallel.multihost", "training.sharded"):
+             "parallel.mesh", "parallel.multihost", "training.sharded",
+             "models.ssd_mobilenet", "models.tflite_import",
+             "models.tf_import", "pipeline.human_detector",
+             "cli.import_weights"):
     assert port.__name__ + "." + name in names, name
 import chip_smoke
 assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax",
                                                    "orbax"))
             and sys.modules[m] is not None]
+# the readers of TensorFlow's and Orbax's formats import them when called
+assert not [m for m in sys.modules if m.split(".")[0] in (
+    "tensorflow", "tensorstore")], "tensorflow or tensorstore imported"
 print("ok", len(names))
 """
 
@@ -65,7 +73,7 @@ for name in ("grpc", "google.protobuf", "jax", "flax",
 from human_body_proportion_estimation_tpu_torch.serve import (
     client, registry, server, wire)
 reg = registry.build_registry(device="cpu")
-assert len(reg.names()) == 7, reg.names()
+assert len(reg.names()) == 8, reg.names()
 loaded = [m for m in sys.modules if sys.modules[m] is not None and (
     m.split(".")[0] == "grpc" or m.startswith("google.protobuf"))]
 assert not loaded, loaded

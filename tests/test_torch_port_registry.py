@@ -42,9 +42,9 @@ from human_body_proportion_estimation_tpu_torch.serve.server import (
 )
 from tests.torch_port_tiny import (
     MAX_BATCH,
-    NOT_PORTED,
     PORTED,
     RANDOM,
+    SSD,
     image,
     jax_pipeline,
     jax_registry,
@@ -57,7 +57,7 @@ PLATFORM = {"hrnet": "pytorch", "edetlite4": "pytorch",
             "edetlite4_modified": "pytorch",
             "ensemble_edet4_person_det_pose": "pytorch_ensemble",
             "higherhrnet": "pytorch", "yolov5m": "pytorch",
-            "yolov5s": "pytorch"}
+            "yolov5s": "pytorch", "ssd_mobilenet": "pytorch"}
 
 
 @pytest.fixture(scope="module")
@@ -127,16 +127,42 @@ def test_documents_equal_the_jax_ones(apps, name):
         assert meta["outputs"][0]["shape"] == [-1, 17, 16, 16]
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_models_not_ported_answer_as_unknown_names(apps, name):
-    treg = apps["treg"]
-    for call in (lambda: treg.metadata(name), lambda: treg.config(name),
-                 lambda: treg.statistics(name), lambda: treg.load(name),
-                 lambda: treg.unload(name),
-                 lambda: treg.infer(name, {"image": image(0)})):
-        with pytest.raises(KeyError) as exc:
-            call()
-        assert f"model '{name}' not found; repository has " in str(exc.value)
+def _outcome(call):
+    """(result, None) or (None, (exception type name, message))."""
+    try:
+        return call(), None
+    except Exception as e:  # noqa: BLE001
+        return None, (type(e).__name__, str(e))
+
+
+@pytest.mark.parametrize("name", SSD)
+def test_ssd_without_its_file_answers_as_jax(apps, name):
+    """The SSD is registered on both sides; with the reference's
+    ssd.tflite absent (as here) its documents are served, and loading or
+    inferring it fails as in the JAX registry, naming the file; it stays
+    unloaded."""
+    from human_body_proportion_estimation_tpu_torch.models.tflite_import import (  # noqa: E501
+        DEFAULT_TFLITE_PATH,
+    )
+
+    for call in (lambda r: r.metadata(name), lambda r: r.config(name),
+                 lambda r: r.load(name), lambda r: r.unload(name),
+                 lambda r: r.infer(name, {"image": image(0)})):
+        (ref, ref_err), (got, got_err) = both(apps, lambda r: _outcome(
+            lambda: call(r)))
+        assert (got_err is None) == (ref_err is None), (got_err, ref_err)
+        if ref_err is not None:
+            assert got_err == ref_err and DEFAULT_TFLITE_PATH in got_err[1]
+            continue
+        if isinstance(got, dict) and isinstance(ref, dict):
+            assert got.pop("platform") == PLATFORM[name]
+            assert ref.pop("platform").startswith("jax_xla")
+        assert got == ref
+    (row,) = apps["treg"].statistics(name)["model_stats"]
+    assert row["inference_stats"]["fail"]["count"] >= 1
+    ref, got = both(apps, lambda r: {row["name"]: row["loaded"]
+                                     for row in r.index()})
+    assert got[name] is ref[name] is False
 
 
 def test_version_surface_matches_jax(apps):
@@ -421,12 +447,12 @@ def test_shared_core_is_released_only_when_no_sibling_is_loaded(
 
 def test_unload_dependents_matches_jax(apps):
     for reg in (apps["jreg"], apps["treg"]):
-        for name in set(PORTED) - set(RANDOM):
+        for name in set(PORTED) - set(RANDOM) - set(SSD):
             reg.load(name)
         reg.unload("ensemble_edet4_person_det_pose", unload_dependents=True)
     ref, got = both(apps, lambda r: {row["name"]: row["loaded"]
                                      for row in r.index()
-                                     if row["name"] not in RANDOM})
+                                     if row["name"] not in RANDOM + SSD})
     assert got == ref == {"edetlite4": True, "edetlite4_modified": False,
                           "ensemble_edet4_person_det_pose": False,
                           "hrnet": False}
@@ -470,15 +496,19 @@ def test_certified_fallback_labels_unshared_slots(monkeypatch, tmp_path):
         # no YOLO or HigherHRNet weights are in the repository: those
         # stay "random"
         assert idx[name]["weights"] == (
-            "random" if name in RANDOM else "synthetic-certified"), name
+            "random" if name in RANDOM else "real" if name in SSD
+            else "synthetic-certified"), name
         assert not idx[name]["loaded"]
     monkeypatch.setattr(weights, "default_certified_checkpoint",
                         lambda: str(tmp_path / "missing.npz"))
+    # the SSD's weights are its tflite's, never a fallback: "real"
     reg = tregistry.build_registry(device="cpu")
-    assert {r["weights"] for r in reg.index()} == {"random"}
+    assert {r["name"]: r["weights"] for r in reg.index()} == {
+        name: "real" if name in SSD else "random" for name in PORTED}
     monkeypatch.undo()                   # the tests' setting: switched off
     reg = tregistry.build_registry(device="cpu")
-    assert {r["weights"] for r in reg.index()} == {"random"}
+    assert {r["name"]: r["weights"] for r in reg.index()} == {
+        name: "real" if name in SSD else "random" for name in PORTED}
 
 
 # --------------------------------------------------------------------- #
@@ -658,7 +688,7 @@ def test_v2_infer_classification_matches_jax(apps, binary):
 
 
 @pytest.mark.parametrize("case", [
-    "unknown_model", "not_ported", "bad_dtype", "malformed_json",
+    "unknown_model", "file_absent", "bad_dtype", "malformed_json",
     "truncated_binary", "trailing_bytes", "bad_header_length", "bad_route",
 ])
 def test_v2_infer_errors_match_jax(apps, case):
@@ -667,8 +697,10 @@ def test_v2_infer_errors_match_jax(apps, case):
     body, headers = _infer_body({"input": x}, True)
     if case == "unknown_model":
         path = "/v2/models/nope/infer"
-    elif case == "not_ported":
+    elif case == "file_absent":
+        # the SSD with the reference's ssd.tflite absent: its load fails
         path = "/v2/models/ssd_mobilenet/infer"
+        body, headers = _infer_body({"image": image(0)}, True)
     elif case == "bad_dtype":
         body, headers = _infer_body({"input": x.astype(np.float64)}, False)
     elif case == "malformed_json":

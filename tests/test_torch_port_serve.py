@@ -602,10 +602,15 @@ def test_stage_timer_snapshot_matches_jax():
     ["--checkpoint-dir", "x"],
 ])
 def test_server_main_exits_on_options_not_ported(argv, monkeypatch, capsys):
-    """Exit code 2 and the ROADMAP item, before any model is built;
-    `--data-parallel 2` (item 16, ported) exits so too where fewer than
-    two CUDA devices are present (tests/conftest.py hides every GPU),
-    naming them."""
+    """Exit code 2 and the reason, before any model is built: the default
+    detector (ssd_mobilenet) without the reference's ssd.tflite (absent
+    here) names the file, with or without `--checkpoint-dir`;
+    `--data-parallel 2` exits so too where fewer than two CUDA devices
+    are present (tests/conftest.py hides every GPU), naming them."""
+    from human_body_proportion_estimation_tpu_torch.models.tflite_import import (  # noqa: E501
+        DEFAULT_TFLITE_PATH,
+    )
+
     from human_body_proportion_estimation_tpu_torch.serve import server
 
     def no_model(*a, **k):
@@ -616,12 +621,13 @@ def test_server_main_exits_on_options_not_ported(argv, monkeypatch, capsys):
         tmain(argv)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    # the default detector (ssd_mobilenet, item 10) exits before the mesh
-    # is built; --bottom-up and --artifact-dir never read the detector
+    # the default detector (ssd_mobilenet, its file absent) exits before
+    # the mesh is built; --bottom-up and --artifact-dir never read the
+    # detector
     dp_first = "--data-parallel" in argv and (
         "--bottom-up" in argv or "--artifact-dir" in argv)
     assert ("--data-parallel 2: 2 devices asked for, 0 CUDA devices "
-            "available" if dp_first else "ROADMAP.md item") in err
+            "available" if dp_first else DEFAULT_TFLITE_PATH) in err
 
 
 # --------------------------------------------------------------------- #
