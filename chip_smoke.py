@@ -118,9 +118,13 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      in-process program; `HumanDetectorSSD` on a tflite written here
      without TensorFlow (tests/torch_port_tflite.py) against `SSDBackend`
      on the dequantized weights; `serve.server` with its default
-     `--detector` exits 2 naming the absent ssd.tflite; where tensorstore
-     imports, `--checkpoint-dir` from a directory written here serves
-     the compact checkpoint's rows; imgs/s at B=16 beside Lite4.
+     `--detector` exits 2 naming the absent ssd.tflite; the certified
+     pipeline written as an Orbax checkpoint by the port's own store
+     (`models/orbax_store.py`, no tensorstore) and read back bit-equal,
+     both timed, and `--checkpoint-dir` from it serving the compact
+     checkpoint's rows; the committed JAX-written Orbax fixture
+     (tests/data/torch_port/orbax_jax/) read bit-equal to its .npz twin;
+     imgs/s at B=16 beside Lite4.
   D. the other slots and their CLIs (ROADMAP item 12), with the seeded
      weights of tests/data/torch_port/slot_goldens.json made again on the
      CPU (tests/torch_port_slots.py): the f32 (TF32 off) EfficientDet-Lite0
@@ -186,13 +190,15 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      training imgs/s, peak memory and the loss trend of pose B=16, Lite0
      detection B=8 and bottom-up B=8, and a profile of the pose step
      (chiprun_out/train_profile_pose_b16.txt); `cli.certify.main` in
-     process on a short budget (Lite0, 200 + 200 steps at batch 4) and
-     `cli.certify_bottomup.main` (200 steps at batch 4): the JAX report's
+     process on a short budget (Lite0, 120 + 120 steps at batch 4) and
+     `cli.certify_bottomup.main` (120 steps at batch 4): the JAX report's
      keys, finite falling losses, the reload equal to the trained state
      (checked inside the CLIs), every request of the served sweeps
      answered, launches counted from 0 (certify: each kernel at least
      once; bottom-up: none); the gates are printed, not asserted (they
-     need the full budget).
+     need the full budget); certify's Orbax `ckpt/` served by
+     `serve.server --checkpoint-dir`, a B=16 batch at det threshold 0.05
+     equal to the CLI's reloaded pipeline, with persons found.
   X. the deployable artifact (ROADMAP item 16, first half): phase 3's
      certified Lite4 -> W32 pipeline exported with torch.export at B=16
      (`pipeline/export.py`, the three kernels as `hbpe` ops of its graph),
@@ -232,12 +238,25 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      E, T, X and M), the card's name and power limit, and the result line
      {"ok": true, "device": {...}} last.
 
+The phases run in the order 3, A, C, B, Y, S, D, U, E, T, X, M. A
+subprocess that needs nothing of the work before it begins early and runs
+beside in-process work: phase B's CLI and phase E's `cli.evaluate` before
+phase C; phase X's compile-cache build and its YOLOv5m / bottom-up
+artifact process before phase U; phase M's two processes before phase X;
+phase D's five CLIs before phase S; the CLIs and the exit-2 server of
+phases Y, S and U at their phase's start (each CLI and that server with
+two CPU threads); phase T's `cli.certify_bottomup` in a process of its own beside
+`cli.certify`. Each is waited for where its phase
+checks it, and killed at exit if it still runs. Every log line begins with
+the seconds since the script began.
+
 Imports nothing of JAX; builds into the package's gitignored `build/`.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import os
@@ -257,8 +276,12 @@ FILE_ROUTE = "/body_proportion_length_estimation_file"
 ALL_PHASES = "ABCYSDUETXM"
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the log, after the seconds since the script began."""
+    print(f"[{time.perf_counter() - T_START:6.1f}s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -267,6 +290,64 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
+
+
+class Started:
+    """A subprocess begun now and read later: a thread drains its pipes (a
+    full pipe never stalls it) and notes the seconds from its start to its
+    exit. `communicate()` and `returncode` as `subprocess.Popen`'s; `wall`
+    those seconds; keyword arguments become attributes. Every one begun is
+    killed at exit if it still runs (`stop_all`)."""
+
+    begun: list = []
+
+    def __init__(self, cmd, cwd, timeout=600, merge=False, env=None,
+                 **attrs):
+        import threading
+
+        self.__dict__.update(attrs)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            cmd, cwd=cwd, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT if merge else subprocess.PIPE,
+            text=True, env=env)
+        Started.begun.append(self)
+        self._done = threading.Thread(target=self._wait, args=(timeout,),
+                                      daemon=True)
+        self._done.start()
+
+    def _wait(self, timeout):
+        try:
+            self.out, err = self.proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.out, err = self.proc.communicate()
+        self.err = err or ""
+        self.wall = time.perf_counter() - self.t0
+
+    def communicate(self, timeout=None):
+        self._done.join()
+        return self.out, self.err
+
+    @property
+    def returncode(self):
+        return self.proc.returncode
+
+    @classmethod
+    def stop_all(cls):
+        for s in cls.begun:
+            if s.proc.poll() is None:
+                s.proc.kill()
+
+
+# the subprocesses main() begins before an earlier phase, so that they run
+# beside its in-process work: the consuming phase's name -> its Started
+EARLY: dict = {}
+
+
+def beside_env():
+    """The environment of a CLI begun beside other work: two CPU threads."""
+    return dict(os.environ, OMP_NUM_THREADS="2")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -1109,34 +1190,44 @@ def edge_sweep(pipe, golden, scene_bytes):
         log(f"edge sweep: {json.dumps(row)}")
 
 
-def run_cli(golden, repo):
-    """The CLI in a subprocess on a directory of the scenes."""
-    import ast
-    import re
+def start_cli(golden, repo):
+    """Phase B's CLI begun in a subprocess on a directory of the scenes."""
     import shutil
     import tempfile
 
+    height, thres = golden["person_height_cm"], golden["det_threshold"]
+    tmp = tempfile.mkdtemp(prefix="phase_b_")
+    media, out = os.path.join(tmp, "media"), os.path.join(tmp, "out")
+    os.makedirs(media)
+    for name in golden["scenes"]:
+        shutil.copy(os.path.join(DATA, name), media)
+    return Started(
+        [sys.executable, "-m",
+         "human_body_proportion_estimation_tpu_torch.cli.detect_pose",
+         "-i", media, "-o", out, "-t", str(thres), "-p", str(height)],
+        repo, env=beside_env(), tmp=tmp, out_dir=out)
+
+
+def run_cli(golden, repo):
+    """The CLI in a subprocess on a directory of the scenes (begun by
+    main() before phase C, or here)."""
+    import ast
+    import re
+    import shutil
+
     import numpy as np
 
-    height, thres = golden["person_height_cm"], golden["det_threshold"]
-    with tempfile.TemporaryDirectory() as tmp:
-        media, out = os.path.join(tmp, "media"), os.path.join(tmp, "out")
-        os.makedirs(media)
-        for name in golden["scenes"]:
-            shutil.copy(os.path.join(DATA, name), media)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m",
-             "human_body_proportion_estimation_tpu_torch.cli.detect_pose",
-             "-i", media, "-o", out, "-t", str(thres), "-p", str(height)],
-            cwd=repo, capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
-        assert proc.returncode == 0, proc.stderr[-4000:]
-        saved = sorted(os.listdir(os.path.join(out, "tpu_pdet_pose")))
+    height = golden["person_height_cm"]
+    proc = EARLY.pop("B", None) or start_cli(golden, repo)
+    proc.communicate()
+    wall = proc.wall
+    assert proc.returncode == 0, proc.err[-4000:]
+    saved = sorted(os.listdir(os.path.join(proc.out_dir, "tpu_pdet_pose")))
+    shutil.rmtree(proc.tmp, ignore_errors=True)
     frames = [f for f in saved if f.startswith("frame_")]
     assert len(frames) == 3, saved
     dicts = [ast.literal_eval(m) for m in
-             re.findall(r"\{'[^{}]*\}", proc.stdout)]
+             re.findall(r"\{'[^{}]*\}", proc.out)]
     valid = np.asarray(golden["packed"])[..., 0] > 0.5
     # the printed list holds, image after image, one dict per valid slot
     persons = [(s, nth) for s in range(valid.shape[0])
@@ -1671,11 +1762,11 @@ def imgs_per_s(pipe, batch, height, thres, iters=8):
 
 def detect_yolo_cli(repo, image, extra):
     """`cli.detect_yolo` in a subprocess (started, not waited for)."""
-    return subprocess.Popen(
+    return Started(
         [sys.executable, "-m",
          "human_body_proportion_estimation_tpu_torch.cli.detect_yolo",
-         "-i", image, "-o", "", "--model", "yolov5m", *extra],
-        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         "-i", image, "-o", "", "--model", "yolov5m", *extra], repo,
+        env=beside_env())
 
 
 def cli_detections(proc, what):
@@ -1725,6 +1816,10 @@ def run_yolo(k, dev, lite4_pipe, repo):
     n = len(images)
     height, thres = golden["person_height_cm"], golden["det_threshold"]
     batch16 = [images[i % n] for i in range(16)]
+    # step 6's CLIs (process mode, random weights of their own) begin now,
+    # beside the steps before it
+    cli_procs = {flags: detect_yolo_cli(repo, paths[0], list(flags))
+                 for flags in ((), ("--legacy-nms",))}
 
     # 1. the weights: the goldens' seeded YOLOv5m, made here on the CPU
     t0 = time.perf_counter()
@@ -1911,11 +2006,10 @@ def run_yolo(k, dev, lite4_pipe, repo):
         + ("" if remote_cli is None else
            f"; detect_yolo -g in a subprocess: {n_det[0][0]} detections"))
 
-    # 6. the CLI in process mode, in subprocesses: default and --legacy-nms
-    procs = {flags: detect_yolo_cli(repo, paths[0], list(flags))
-             for flags in ((), ("--legacy-nms",))}
+    # 6. the CLI in process mode, in subprocesses (begun at the phase's
+    # start): default and --legacy-nms
     cli = {" ".join(f) or "default": cli_detections(p, f"detect_yolo {f}")
-           for f, p in procs.items()}
+           for f, p in cli_procs.items()}
     log(f"phase Y: detect_yolo --model yolov5m (random weights of its own) "
         f"exits 0: detections {cli}")
 
@@ -1974,11 +2068,88 @@ def ssd_slots_against(res, golden, det_hw, what):
     return box_err, score_err
 
 
+def orbax_round_trip(directory, det_state, pose_state):
+    """Write the pipeline checkpoint of two port `state_dict`s with the
+    port's Orbax store (`models/orbax_store.py`) and read it back, both
+    timed, the zstd decoder built first; every leaf must come back
+    bit-equal. Returns (write s, read s, MB on disk)."""
+    import numpy as np
+
+    from human_body_proportion_estimation_tpu_torch.models.weights import (
+        load_pipeline_checkpoint,
+        save_pipeline_checkpoint,
+        state_dict_to_flax,
+    )
+    from human_body_proportion_estimation_tpu_torch.utils import zstd
+
+    t0 = time.perf_counter()
+    zstd.load_library()
+    log(f"zstd decoder (utils/zstd_decompress.cpp) built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    trees = (state_dict_to_flax(det_state), state_dict_to_flax(pose_state))
+    t0 = time.perf_counter()
+    save_pipeline_checkpoint(directory, *trees)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = load_pipeline_checkpoint(directory)
+    t_read = time.perf_counter() - t0
+    for want, have in zip(trees, got):
+        want, have = flat_tree(want), flat_tree(have)
+        assert sorted(want) == sorted(have)
+        for name, arr in want.items():
+            assert have[name].dtype == arr.dtype and np.array_equal(
+                have[name], arr), name
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(directory) for f in fs)
+    return t_write, t_read, size / 1e6
+
+
+def flat_tree(tree, prefix=""):
+    """'/'-joined leaf paths of a nested dict and their leaves."""
+    out = {}
+    for k in sorted(tree):
+        name = f"{prefix}/{k}" if prefix else k
+        if isinstance(tree[k], dict):
+            out.update(flat_tree(tree[k], name))
+        else:
+            out[name] = tree[k]
+    return out
+
+
+def check_orbax_fixture() -> int:
+    """The committed Orbax checkpoint the JAX package wrote
+    (tests/data/torch_port/orbax_jax/, made by
+    tests/torch_port_orbax_fixture.py), read by the port, equals its twin
+    orbax_jax.npz bit for bit (bfloat16 as its uint16 bits; the numpy
+    scalar Orbax restores as a Python number). Returns the leaf count."""
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.models.weights import (
+        load_pipeline_checkpoint,
+    )
+
+    det, pose = load_pipeline_checkpoint(os.path.join(DATA, "orbax_jax"))
+    twin = np.load(os.path.join(DATA, "orbax_jax.npz"))
+    got = flat_tree({"det": det, "pose": pose})
+    assert sorted(got) == sorted(twin.files), (sorted(got), twin.files)
+    for name, leaf in got.items():
+        want = twin[name]
+        if isinstance(leaf, torch.Tensor):
+            assert leaf.dtype == torch.bfloat16, name
+            leaf = leaf.view(torch.int16).numpy().view(np.uint16)
+        if isinstance(leaf, (int, float)):
+            assert want.shape == () and leaf == want.item(), name
+            continue
+        assert (leaf.dtype, leaf.shape) == (want.dtype, want.shape), name
+        assert leaf.tobytes() == want.tobytes(), name
+    return len(got)
+
+
 def run_ssd(k, dev, lite4_pipe, repo):
     """Phase S: the SSD slot on the card, on seeded weights (the reference's
     ssd.tflite is not in the checkout). Returns the launches of the path's
     forwards, artifact batch and requests (comparisons excluded)."""
-    import importlib.util
     import tempfile
 
     import cv2
@@ -2007,6 +2178,9 @@ def run_ssd(k, dev, lite4_pipe, repo):
     from human_body_proportion_estimation_tpu_torch.pipeline.human_detector import (  # noqa: E501
         HumanDetectorSSD,
     )
+    from human_body_proportion_estimation_tpu_torch.serve import (
+        server as srv,
+    )
     from human_body_proportion_estimation_tpu_torch.serve.client import (
         HttpClient,
     )
@@ -2019,6 +2193,12 @@ def run_ssd(k, dev, lite4_pipe, repo):
     )
 
     t_phase = time.perf_counter()
+    # step 6's server begins now, beside the steps before it
+    default_server = None if os.path.exists(DEFAULT_TFLITE_PATH) else Started(
+        [sys.executable, "-m",
+         "human_body_proportion_estimation_tpu_torch.serve.server",
+         "--port", "0", "--grpc-port", "0"], repo, timeout=300,
+        env=beside_env())
     recipe = load_tests_module("torch_port_ssd")
     tflite = load_tests_module("torch_port_tflite")
     with open(os.path.join(DATA, "ssd_goldens.json")) as fh:
@@ -2222,52 +2402,44 @@ def run_ssd(k, dev, lite4_pipe, repo):
         f"tflite (uint8 weights) finds {found} persons at 0.3, the boxes "
         "and scores SSDBackend gives on the dequantized weights")
 
-    # 6. the default server with the file absent: exit 2 naming it
-    if not os.path.exists(DEFAULT_TFLITE_PATH):
-        proc = subprocess.run(
-            [sys.executable, "-m",
-             "human_body_proportion_estimation_tpu_torch.serve.server",
-             "--port", "0", "--grpc-port", "0"],
-            cwd=repo, capture_output=True, text=True, timeout=300)
-        assert proc.returncode == 2 and DEFAULT_TFLITE_PATH in proc.stderr, (
-            proc.returncode, proc.stderr[-2000:])
+    # 6. the default server with the file absent (begun at the phase's
+    # start): exit 2 naming it
+    if default_server is not None:
+        _, err = default_server.communicate()
+        assert default_server.returncode == 2 and DEFAULT_TFLITE_PATH in err, (
+            default_server.returncode, err[-2000:])
         log(f"phase S: serve.server with its default --detector exits 2 "
             f"naming {DEFAULT_TFLITE_PATH}")
 
-    # 7. --checkpoint-dir (an Orbax checkpoint read through tensorstore):
-    # written here from the certified weights, served once, rows equal
-    # to the compact checkpoint's path
-    if importlib.util.find_spec("tensorstore") is None:
-        log("phase S: tensorstore is not installed on this machine: "
-            "--checkpoint-dir exits 2 here, naming it")
-    else:
-        from human_body_proportion_estimation_tpu_torch.models.weights import (  # noqa: E501
-            save_pipeline_checkpoint,
-            state_dict_to_flax,
-        )
-        from human_body_proportion_estimation_tpu_torch.serve import (
-            server as srv,
-        )
-
-        ckpt = os.path.join(tmp, "ckpt")
-        t0 = time.perf_counter()
-        save_pipeline_checkpoint(
-            ckpt, state_dict_to_flax(lite4_pipe.backend.detector.state_dict()),
-            state_dict_to_flax(lite4_pipe.pose.state_dict()))
-        t_write = time.perf_counter() - t0
-        args = srv.build_parser().parse_args(
-            ["--detector", "efficientdet_lite4", "--checkpoint-dir", ckpt])
-        t0 = time.perf_counter()
-        cpipe = srv.build_pipeline(args)
-        t_read = time.perf_counter() - t0
-        assert cpipe.weights_origin == {"detector": "real", "pose": "real"}
-        rows = cpipe.infer_serving(batch16, height, thres)
-        ref = lite4_pipe.infer_serving(batch16, height, thres)
-        np.testing.assert_array_equal(rows, ref)
-        log(f"phase S: --checkpoint-dir (written in {t_write:.1f} s, read "
-            f"in {t_read:.1f} s through tensorstore): rows equal to the "
-            "compact checkpoint's at B=16")
-        del cpipe
+    # 7. --checkpoint-dir: an Orbax checkpoint written here by the port's
+    # store from the certified weights, read (timed), served once, rows
+    # equal to the compact checkpoint's path; then the committed
+    # JAX-written fixture, read bit for bit against its twin
+    ckpt = os.path.join(tmp, "ckpt")
+    t_write, t_read, mb = orbax_round_trip(
+        ckpt, lite4_pipe.backend.detector.state_dict(),
+        lite4_pipe.pose.state_dict())
+    args = srv.build_parser().parse_args(
+        ["--detector", "efficientdet_lite4", "--checkpoint-dir", ckpt])
+    t0 = time.perf_counter()
+    cpipe = srv.build_pipeline(args)
+    t_build = time.perf_counter() - t0
+    assert cpipe.weights_origin == {"detector": "real", "pose": "real"}
+    rows = cpipe.infer_serving(batch16, height, thres)
+    ref = lite4_pipe.infer_serving(batch16, height, thres)
+    np.testing.assert_array_equal(rows, ref)
+    log(f"phase S: --checkpoint-dir: the certified Lite4 + W32 pipeline "
+        f"({mb:.1f} MB on disk) written by the port's Orbax store in "
+        f"{t_write:.3f} s, read in {t_read:.3f} s ({mb / t_read:.1f} MB/s), "
+        f"serve.server's pipeline built from it in {t_build:.3f} s (its "
+        f"read included); rows equal to the compact checkpoint's at B=16 "
+        f"on {card_line()}")
+    del cpipe
+    n_leaves = check_orbax_fixture()
+    log(f"phase S: the committed JAX-written Orbax fixture "
+        f"(tests/data/torch_port/orbax_jax/, {n_leaves} leaves: every "
+        "dtype, scalars, inline and indirect values, a multi-chunk leaf "
+        "with an absent chunk) equals its .npz twin bit for bit")
 
     # 8. imgs/s at B=16: the SSD slot (bf16, as the server builds it) and
     # Lite4, in turns
@@ -2336,14 +2508,28 @@ def level_features(model, images):
     return zs, (best, person)
 
 
-def cli_process(repo, module, image, extra):
+def cli_process(repo, module, image, extra, env=None):
     """`python3 -m <port>.cli.<module>` in a subprocess (started, not
     waited for)."""
-    return subprocess.Popen(
+    return Started(
         [sys.executable, "-m",
          f"human_body_proportion_estimation_tpu_torch.cli.{module}",
-         "-i", image, "-o", "", *extra],
-        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+         "-i", image, "-o", "", *extra], repo, env=env)
+
+
+def start_slot_clis(repo):
+    """Phase D's CLIs in process mode, begun in subprocesses on the first
+    scene: detect_edet with Lite4 and Lite0, pose_est with W32, W48 and
+    HigherHRNet, beside other work."""
+    scene = os.path.join(DATA, load_tests_module().SCENES[0])
+    env = beside_env()
+    local = {f"detect_edet {d}": cli_process(repo, "detect_edet", scene,
+                                             ["--detector", d], env)
+             for d in ("efficientdet_lite4", "efficientdet_lite0")}
+    local.update({f"pose_est {m}": cli_process(repo, "pose_est", scene,
+                                               ["--model", m], env)
+                  for m in ("hrnet_w32", "hrnet_w48", "higherhrnet")})
+    return local
 
 
 def cli_output(proc, what):
@@ -2404,6 +2590,10 @@ def run_other_slots(k, dev, lite4_pipe, repo, batch=16):
 
     t_phase = time.perf_counter()
     slots = load_tests_module()
+    scene = os.path.join(DATA, slots.SCENES[0])
+    # step 6's CLIs in process mode: begun by main() before phase S, or
+    # here
+    local = EARLY.pop("D", None) or start_slot_clis(repo)
     with open(os.path.join(DATA, "slot_goldens.json")) as fh:
         golden = json.load(fh)
     g_lite0, g_higher = golden["lite0"], golden["higherhrnet"]
@@ -2616,14 +2806,8 @@ def run_other_slots(k, dev, lite4_pipe, repo, batch=16):
     # 6. the CLIs in subprocesses: in process, then with -g against the
     # Lite0 server's gRPC edge (edetlite4 runs the serving Lite0, hrnet the
     # certified W32, higherhrnet a seeded random HigherHRNet); each remote
-    # answer against the registry's forward here at the same batch size
-    scene = os.path.join(DATA, slots.SCENES[0])
-    local = {f"detect_edet {d}": cli_process(repo, "detect_edet", scene,
-                                        ["--detector", d])
-             for d in ("efficientdet_lite4", "efficientdet_lite0")}
-    local.update({f"pose_est {m}": cli_process(repo, "pose_est", scene,
-                                          ["--model", m])
-                  for m in ("hrnet_w32", "hrnet_w48", "higherhrnet")})
+    # answer against the registry's forward here at the same batch size;
+    # the CLIs in process mode began before
     printed = {what: cli_output(p, what) for what, p in local.items()}
     for what, out in printed.items():
         if what.startswith("pose_est"):
@@ -2837,6 +3021,7 @@ def run_bottom_up(k, dev, repo, batch=16):
     Estimate), the registry sharing the module, and `detect_pose_bottomup`
     in a subprocess. Returns the launches of the bottom-up forwards
     (none: no kernel of the port is on this path)."""
+    import shutil
     import tempfile
 
     import numpy as np
@@ -2867,6 +3052,14 @@ def run_bottom_up(k, dev, repo, batch=16):
     bu = load_tests_module("torch_port_bottomup")
     with open(os.path.join(DATA, "bottomup_goldens.json")) as fh:
         golden = json.load(fh)
+    # step 7's CLI begins now, beside the steps before it
+    cli_out = tempfile.mkdtemp(prefix="phase_u_")
+    cli = Started(
+        [sys.executable, "-m",
+         "human_body_proportion_estimation_tpu_torch.cli."
+         "detect_pose_bottomup", "-i",
+         os.path.join(DATA, golden["scenes"][0]), "-o", cli_out], repo,
+        env=beside_env())
     images = slots.scenes()
     n = len(images)
     scene_bytes = []
@@ -3121,23 +3314,19 @@ def run_bottom_up(k, dev, repo, batch=16):
         f"module on rows padded to the bucket"
         + ("" if missing else "; hbpe Estimate equals the B=1 forward"))
 
-    # 7. the CLI in a subprocess: as many cm dicts as the in-process forward
-    # finds persons in the scene, and its rendering
-    with tempfile.TemporaryDirectory() as out_dir:
-        proc = subprocess.run(
-            [sys.executable, "-m",
-             "human_body_proportion_estimation_tpu_torch.cli."
-             "detect_pose_bottomup", "-i",
-             os.path.join(DATA, golden["scenes"][0]), "-o", out_dir],
-            cwd=repo, capture_output=True, text=True, timeout=600)
-        assert proc.returncode == 0, proc.stderr[-4000:]
-        frames = os.listdir(os.path.join(out_dir, "tpu_bottomup_pose"))
+    # 7. the CLI in a subprocess (begun at the phase's start): as many cm
+    # dicts as the in-process forward finds persons in the scene, and its
+    # rendering
+    cli_stdout, cli_err = cli.communicate()
+    assert cli.returncode == 0, cli_err[-4000:]
+    frames = os.listdir(os.path.join(cli_out, "tpu_bottomup_pose"))
+    shutil.rmtree(cli_out, ignore_errors=True)
     assert frames == ["frame_000000.jpg"], frames
     with counted:
         want = int(bpipe.infer_images([images[0]]).person_valid.sum())
     assert counted.last == zero, counted.last
-    assert proc.stdout.count("'shoulder':") == want, (proc.stdout[-2000:],
-                                                      want)
+    assert cli_stdout.count("'shoulder':") == want, (cli_stdout[-2000:],
+                                                     want)
     log(f"phase U: detect_pose_bottomup exits 0 with {want} person(s) "
         f"printed and frame_000000.jpg rendered, as the in-process forward")
     log(f"phase U card: {card_line()}")
@@ -3197,6 +3386,16 @@ def one_match_figure(calls):
     return out
 
 
+def start_evaluate(repo):
+    """Phase E's `cli.evaluate` begun in a subprocess."""
+    return Started(
+        [sys.executable, "-m",
+         "human_body_proportion_estimation_tpu_torch.cli.evaluate",
+         "--annotations", os.path.join(DATA, "scenes_coco.json"),
+         "--images-dir", DATA, "--detector", "efficientdet_lite4"], repo,
+        env=beside_env())
+
+
 def run_evaluate(k, lite4_pipe, repo):
     """Phase E: `cli.evaluate --detector efficientdet_lite4` in a
     subprocess on the committed scenes and their COCO ground truth, against
@@ -3211,16 +3410,12 @@ def run_evaluate(k, lite4_pipe, repo):
     path = os.path.join(DATA, "scenes_coco.json")
     with open(path) as fh:
         jax_result = json.load(fh)["jax_run_eval"]
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m",
-         "human_body_proportion_estimation_tpu_torch.cli.evaluate",
-         "--annotations", path, "--images-dir", DATA,
-         "--detector", "efficientdet_lite4"],
-        cwd=repo, capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    # begun by main() before phase C, or here
+    proc = EARLY.pop("E", None) or start_evaluate(repo)
+    out, err = proc.communicate()
+    wall = proc.wall
+    assert proc.returncode == 0, err[-4000:]
+    result = json.loads(out.strip().splitlines()[-1])
 
     # the same run in process, recording what reaches the metrics
     calls, plain = [], {}
@@ -3272,6 +3467,9 @@ TRAIN_KINDS = ("pose", "det", "bottomup")
 # the throughput batches: pose B=16 (certify's --pose-batch), Lite0
 # detection B=8 (--det-batch) and bottom-up B=8 (certify_bottomup --batch)
 TRAIN_BATCH = {"pose": 16, "det": 8, "bottomup": 8}
+# the certify CLIs' budget in phase T: the losses are means over chunks of
+# 100 steps, so 120 steps give a first and a last to compare
+CERTIFY_STEPS = 120
 CERTIFY_KEYS = {"mode", "platform", "img_hw", "crop_hw", "pose_loss_first",
                 "pose_loss_last", "gate_gamma", "det_loss_first",
                 "det_loss_last", "pose_val", "det_val", "served",
@@ -3310,7 +3508,7 @@ def train_throughput(cases, kind, dev, warmup=3, steps=20):
     return rate, peak, [float(x) for x in losses], (model, state, t)
 
 
-def train_profile(cases, kind, model_state_batch, steps=3,
+def train_profile(cases, kind, model_state_batch, steps=1,
                   out_name="train_profile_pose_b16.txt"):
     """torch.profiler over `steps` bf16 train steps: (wall ms a step, device
     busy ms a step, CUDA launches a step); the kernel table goes to
@@ -3331,19 +3529,104 @@ def train_profile(cases, kind, model_state_batch, steps=3,
     cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.device_time_total for e in cuda) / 1e3 / steps
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    averages = prof.key_averages()
     with open(os.path.join(REPO, "chiprun_out", out_name), "w") as fh:
-        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                           row_limit=60))
+        fh.write(averages.table(sort_by="self_cuda_time_total", row_limit=60))
         fh.write("\n")
-        fh.write(prof.key_averages().table(sort_by="self_cpu_time_total",
-                                           row_limit=40))
+        fh.write(averages.table(sort_by="self_cpu_time_total", row_limit=40))
     return wall, busy, len(cuda) / steps
+
+
+def serve_certify_checkpoint(ckpt, dev):
+    """`serve.server --detector efficientdet_lite0 --checkpoint-dir` on the
+    Orbax `ckpt/` that `cli.certify` wrote: one B=16 batch of the main
+    path's scenes, rows equal to those of the pipeline the CLI builds on
+    its reload (`load_pipeline_checkpoint` -> `reload_state`, its config,
+    bf16)."""
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.cli import (
+        certify as certify_cli,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.efficientdet import (  # noqa: E501
+        EFFICIENTDET_LITE0,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.hrnet import (
+        HRNET_W32,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.weights import (
+        load_pipeline_checkpoint,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline.host import (
+        InferencePipeline,
+        decode_image_bytes,
+    )
+    from human_body_proportion_estimation_tpu_torch.serve import (
+        server as srv,
+    )
+    from human_body_proportion_estimation_tpu_torch.utils.config import (
+        DetectorConfig,
+        PipelineConfig,
+    )
+
+    golden, scene_bytes = _scenes()
+    images = [decode_image_bytes(b) for b in scene_bytes]
+    batch16 = [images[i % len(images)] for i in range(16)]
+    # the short-trained detector scores these scenes below the main path's
+    # threshold: a low one, so that the rows compared hold persons
+    height, thres = golden["person_height_cm"], 0.05
+    t0 = time.perf_counter()
+    spipe = srv.build_pipeline(srv.build_parser().parse_args(
+        ["--detector", "efficientdet_lite0", "--checkpoint-dir", ckpt]))
+    t_build = time.perf_counter() - t0
+    assert spipe.weights_origin == {"detector": "real", "pose": "real"}
+    det_vars, pose_vars = load_pipeline_checkpoint(ckpt)
+    cli_pipe = InferencePipeline(
+        config=PipelineConfig(
+            detector=DetectorConfig(name="efficientdet_lite0")),
+        det_state=certify_cli.reload_state(det_vars),
+        pose_state=certify_cli.reload_state(pose_vars), device=dev,
+        det_config=EFFICIENTDET_LITE0, pose_config=HRNET_W32,
+        dtype=torch.bfloat16)
+    rows = spipe.infer_serving(batch16, height, thres)
+    ref = cli_pipe.infer_serving(batch16, height, thres)
+    np.testing.assert_array_equal(rows, ref)
+    persons = int(rows[..., 0].sum())
+    assert persons > 0, "no person found: the rows compared are empty"
+    log(f"phase T: cli.certify's Orbax ckpt/ served with serve.server "
+        f"--checkpoint-dir (pipeline built in {t_build:.2f} s): a B=16 "
+        f"batch's rows at det threshold {thres} equal to the CLI's "
+        f"reloaded pipeline ({persons} persons found)")
+    del spipe, cli_pipe
+    torch.cuda.empty_cache()
 
 
 def check_certify_report(report, keys, what):
     assert set(report) == keys, (what, sorted(set(report) ^ keys))
     assert report["platform"] == "gpu" and report["mode"] == "chip", report
     return report
+
+
+def certify_bu_worker(workdir):
+    """--certify-bu-worker: `cli.certify_bottomup.main` at phase T's
+    budget, launches counted from 0; prints one JSON line of its exit
+    code, launches and wall seconds last."""
+    from human_body_proportion_estimation_tpu_torch.cli import (
+        certify_bottomup as certify_bu_cli,
+    )
+    from human_body_proportion_estimation_tpu_torch.ops import kernels as k
+
+    counted = Counted(k)
+    t0 = time.perf_counter()
+    with counted:
+        rc = certify_bu_cli.main([
+            "--workdir", workdir, "--train-scenes", "16", "--val-scenes",
+            "2", "--http-scenes", "2", "--steps", str(CERTIFY_STEPS),
+            "--batch", "4"])
+    print(json.dumps(dict(rc=rc, launches=counted.last,
+                          wall_s=time.perf_counter() - t0)), flush=True)
+    return 0
 
 
 def run_training(k, dev, repo):
@@ -3356,9 +3639,12 @@ def run_training(k, dev, repo):
     profile of the pose step; (3) `cli.certify.main` in process on a short
     budget, counted from 0: the report has the JAX keys, the losses are
     finite and fall, the reload equals the trained state (checked inside),
-    the served sweep answered, and every kernel launched; (4)
-    `cli.certify_bottomup.main` the same way, launching none. Returns the
-    launches of (3) and (4)."""
+    the served sweep answered, and every kernel launched; then the Orbax
+    `ckpt/` that run wrote, served by `serve.server --checkpoint-dir`: one
+    B=16 batch of the main path's scenes at det threshold 0.05, rows equal
+    to the pipeline the CLI builds from its reload, persons among them; (4) `cli.certify_bottomup.main` the same
+    way, in a process of its own beside (3) (`--certify-bu-worker`),
+    launching none. Returns the launches of (3) and (4)."""
     import math
     import shutil
     import tempfile
@@ -3367,7 +3653,6 @@ def run_training(k, dev, repo):
 
     from human_body_proportion_estimation_tpu_torch.cli import (
         certify as certify_cli,
-        certify_bottomup as certify_bu_cli,
     )
 
     t_phase = time.perf_counter()
@@ -3418,14 +3703,20 @@ def run_training(k, dev, repo):
 
     # the workdirs hold f32 checkpoints (~130 MB): outside chiprun_out/
     out = tempfile.mkdtemp(prefix="phase_t_")
+    # (4) runs in a process of its own, beside (3)
+    bu_workdir = os.path.join(out, "phase_t_certify_bu")
+    bu_proc = Started([sys.executable, os.path.abspath(__file__), "--repo",
+                       repo, "--certify-bu-worker", bu_workdir], repo,
+                      merge=True)
     counted = Counted(k)
     t0 = time.perf_counter()
     with counted:
         rc = certify_cli.main([
             "--workdir", os.path.join(out, "phase_t_certify"),
             "--train-scenes", "32", "--det-scenes", "16", "--val-scenes",
-            "4", "--coco-scenes", "8", "--pose-steps", "200", "--pose-batch",
-            "4", "--det-steps", "200", "--det-batch", "4", "--skip-ssd"])
+            "4", "--coco-scenes", "8", "--pose-steps", str(CERTIFY_STEPS),
+            "--pose-batch", "4", "--det-steps", str(CERTIFY_STEPS),
+            "--det-batch", "4", "--skip-ssd"])
     wall = time.perf_counter() - t0
     with open(os.path.join(out, "phase_t_certify", "report.json")) as fh:
         report = check_certify_report(json.load(fh), CERTIFY_KEYS, "certify")
@@ -3438,24 +3729,25 @@ def run_training(k, dev, repo):
     assert served["scenes"] == 4 and served["detected"] == 4, served
     assert report["coco_eval"]["images"] == 8, report["coco_eval"]
     assert all(n > 0 for n in counted.last.values()), counted.last
-    log(f"phase T: cli.certify in process (Lite0, 200 pose steps at batch 4, "
-        f"200 detector steps at batch 4) in {wall:.1f} s: pose loss "
+    log(f"phase T: cli.certify in process (Lite0, {CERTIFY_STEPS} pose steps "
+        f"at batch 4, {CERTIFY_STEPS} detector steps at batch 4) in "
+        f"{wall:.1f} s: pose loss "
         f"{report['pose_loss_first']:.5g} -> {report['pose_loss_last']:.5g}, "
         f"det loss {report['det_loss_first']:.5g} -> "
         f"{report['det_loss_last']:.5g}, served {served['detected']}/4 "
         f"(mean |dcm| {served['mean_abs_cm_err']:.4g}), gates (printed, not "
         f"asserted: they need the full budget) {json.dumps(report['gates'])}"
         f", launches {counted.last}")
+    serve_certify_checkpoint(os.path.join(out, "phase_t_certify", "ckpt"),
+                             dev)
 
-    bu_counted = Counted(k)
-    t0 = time.perf_counter()
-    with bu_counted:
-        rc = certify_bu_cli.main([
-            "--workdir", os.path.join(out, "phase_t_certify_bu"),
-            "--train-scenes", "16", "--val-scenes", "2", "--http-scenes",
-            "2", "--steps", "200", "--batch", "4"])
-    wall = time.perf_counter() - t0
-    with open(os.path.join(out, "phase_t_certify_bu", "report.json")) as fh:
+    bu_out, _ = bu_proc.communicate()
+    *cli_lines, last = bu_out.strip().splitlines() or [""]
+    assert bu_proc.returncode == 0, bu_out[-4000:]
+    print("\n".join(cli_lines), flush=True)
+    worker = json.loads(last)
+    rc, bu_launches = worker["rc"], worker["launches"]
+    with open(os.path.join(bu_workdir, "report.json")) as fh:
         report = check_certify_report(json.load(fh), CERTIFY_BU_KEYS,
                                       "certify_bottomup")
     assert rc == (0 if report["certified"] else 1), rc
@@ -3465,12 +3757,13 @@ def run_training(k, dev, repo):
     # the short-trained model finds is printed, not asserted
     assert report["http"]["scenes"] == 2 and math.isfinite(
         report["http"]["mean_http_latency_s"]), report["http"]
-    assert bu_counted.last == dict.fromkeys(KERNELS, 0), bu_counted.last
-    log(f"phase T: cli.certify_bottomup in process (200 steps at batch 4) in "
-        f"{wall:.1f} s: loss {report['loss_first']:.5g} -> "
+    assert bu_launches == dict.fromkeys(KERNELS, 0), bu_launches
+    log(f"phase T: cli.certify_bottomup in a process of its own, beside "
+        f"cli.certify ({CERTIFY_STEPS} steps at batch 4) in "
+        f"{worker['wall_s']:.1f} s: loss {report['loss_first']:.5g} -> "
         f"{report['loss_last']:.5g}, http {report['http']['detected']}/2, "
         f"gates (printed) {json.dumps(report['gates'])}, launches "
-        f"{bu_counted.last}")
+        f"{bu_launches}")
     shutil.rmtree(out, ignore_errors=True)
     log(f"phase T: {time.perf_counter() - t_phase:.1f} s")
     return counted.total
@@ -3704,6 +3997,24 @@ def packed_against(got, ref, what):
     return figures
 
 
+def start_artifact_workers(repo):
+    """Phase X's two subprocesses that need nothing of the phase: the
+    compile cache's first process, building the kernels with nvcc into a
+    fresh directory (it needs no card), and the YOLOv5m and bottom-up
+    artifacts' exports and checks. Returns (cache1, slots)."""
+    import tempfile
+
+    me = os.path.abspath(__file__)
+    kcache = os.path.join(tempfile.mkdtemp(prefix="phase_x_cache_"),
+                          "kernel_cache")
+    cache1 = Started(
+        [sys.executable, me, "--repo", repo, "--cache-worker", kcache],
+        repo, timeout=300, merge=True, kcache=kcache)
+    slots = Started([sys.executable, me, "--repo", repo, "--slots-worker"],
+                    repo, merge=True)
+    return cache1, slots
+
+
 def run_artifact(k, lite4_pipe, repo):
     """Phase X: the deployable artifact on the card. Returns the launches
     of the artifact batches run (in process and in the subprocesses)."""
@@ -3723,17 +4034,11 @@ def run_artifact(k, lite4_pipe, repo):
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="phase_x_")
     me = os.path.abspath(__file__)
-    # the compile cache's first process builds the kernels with nvcc into
-    # a fresh directory meanwhile (it needs no card)
-    kcache = os.path.join(tmp, "kernel_cache")
-    cache1 = subprocess.Popen(
-        [sys.executable, me, "--repo", repo, "--cache-worker", kcache],
-        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    # the YOLOv5m and bottom-up artifacts are exported and checked by a
-    # subprocess of their own meanwhile (step 3)
-    slots = subprocess.Popen(
-        [sys.executable, me, "--repo", repo, "--slots-worker"],
-        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # the compile cache's first process (step 6) and the YOLOv5m and
+    # bottom-up artifacts' process (step 3): begun by main() before phase
+    # U, or here
+    cache1, slots = EARLY.pop("X", None) or start_artifact_workers(repo)
+    kcache = cache1.kcache
 
     with open(os.path.join(DATA, "goldens.json")) as fh:
         golden = json.load(fh)
@@ -3803,10 +4108,10 @@ def run_artifact(k, lite4_pipe, repo):
         f"{json.dumps(vs_live)}; vs the JAX goldens {json.dumps(vs_golden)};"
         f" 20 images vs live {json.dumps(chunked)}")
 
-    # 3. the other programs, exported and checked by the subprocess started
-    # at the phase's beginning: waited for here, so that the servers and
-    # the throughput below run alone on the card
-    slots_out, _ = slots.communicate(timeout=600)
+    # 3. the other programs, exported and checked by the subprocess begun
+    # before: waited for here, so that the servers and the throughput below
+    # run alone on the card
+    slots_out, _ = slots.communicate()
     assert slots.returncode == 0, slots_out[-3000:]
     sw = json.loads(slots_out.strip().splitlines()[-1])
     assert sw["yolo_launches"] == {"decode_heatmaps": 1, "head_score": 0,
@@ -3868,7 +4173,7 @@ def run_artifact(k, lite4_pipe, repo):
     apipe = ArtifactPipeline(art, device="cuda")
     rates = {"live": [], "artifact": []}
     with counted:
-        for name in ("live", "artifact", "artifact", "live") * 2:
+        for name in ("live", "artifact", "artifact", "live"):
             rates[name].append(imgs_per_s(
                 lite4_pipe if name == "live" else apipe, batch16, height,
                 thres, iters=16))
@@ -3878,7 +4183,7 @@ def run_artifact(k, lite4_pipe, repo):
 
     # 6. the compile cache: the first process built into kcache with nvcc,
     # a second one finds the library there and runs none
-    first, _ = cache1.communicate(timeout=300)
+    first, _ = cache1.communicate()
     assert cache1.returncode == 0, first[-3000:]
     built = json.loads(first.strip().splitlines()[-1])
     proc = subprocess.run(
@@ -3895,6 +4200,7 @@ def run_artifact(k, lite4_pipe, repo):
         f"kernels into it in {built['seconds']:.1f} s, a second found the "
         f"library there without nvcc in {hit['seconds']:.3f} s")
     shutil.rmtree(tmp, ignore_errors=True)
+    shutil.rmtree(os.path.dirname(kcache), ignore_errors=True)
 
     total = dict(counted.total)
     for counts in (w["launches16"], w["launches20"], w["launches_more"],
@@ -4006,12 +4312,24 @@ def _scenes():
     return golden, scene_bytes
 
 
+def start_mesh_workers(repo):
+    """Phase M's two lockstep processes (`--mesh-worker`), begun; rank 0
+    writes both results to the `out_path` they carry."""
+    import tempfile
+
+    out = os.path.join(tempfile.mkdtemp(prefix="phase_m_"),
+                       "mesh_worker.json")
+    port = free_port()
+    me = os.path.abspath(__file__)
+    return [Started([sys.executable, me, "--repo", repo, "--mesh-worker",
+                     str(r), str(port), out], repo, merge=True, out_path=out)
+            for r in range(MESH_WORKERS)]
+
+
 def run_mesh(k, dev, lite4_pipe, repo):
     """Phase M: the main path at dp = 2 on one card (a mesh listing cuda:0
     twice), two lockstep processes, and the sharded pose step. Returns the
     launches of one dp = 2 serving batch, counted from 0."""
-    import tempfile
-
     import numpy as np
     import torch
 
@@ -4027,15 +4345,9 @@ def run_mesh(k, dev, lite4_pipe, repo):
     )
 
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="phase_m_")
-    out = os.path.join(tmp, "mesh_worker.json")
-    port = free_port()
-    me = os.path.abspath(__file__)
-    workers = [subprocess.Popen(
-        [sys.executable, me, "--repo", repo, "--mesh-worker", str(r),
-         str(port), out],
-        cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(MESH_WORKERS)]
+    # begun by main() before phase X, or here
+    workers = EARLY.pop("M", None) or start_mesh_workers(repo)
+    out = workers[0].out_path
 
     golden, scene_bytes = _scenes()
     images = [decode_image_bytes(b) for b in scene_bytes]
@@ -4086,7 +4398,7 @@ def run_mesh(k, dev, lite4_pipe, repo):
     log(f"phase M: dp = 2 bf16 against the goldens: {json.dumps(figures)}")
 
     # 4. two lockstep processes against this one process (f32)
-    logs = [w.communicate(timeout=600)[0] for w in workers]
+    logs = [w.communicate()[0] for w in workers]
     for w, text in zip(workers, logs):
         assert w.returncode == 0, text[-4000:]
     with open(out) as fh:
@@ -4165,6 +4477,9 @@ def main() -> int:
     # phase M's two lockstep processes
     ap.add_argument("--mesh-worker", nargs=3,
                     metavar=("RANK", "PORT", "OUT"), help=argparse.SUPPRESS)
+    # phase T's certify_bottomup process
+    ap.add_argument("--certify-bu-worker", metavar="WORKDIR",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -4181,6 +4496,8 @@ def main() -> int:
         return slots_worker()
     if args.mesh_worker:
         return mesh_worker(*args.mesh_worker)
+    if args.certify_bu_worker:
+        return certify_bu_worker(args.certify_bu_worker)
     from human_body_proportion_estimation_tpu_torch.ops import build
     from human_body_proportion_estimation_tpu_torch.ops import kernels as k
     from human_body_proportion_estimation_tpu_torch.pipeline.host import (
@@ -4228,6 +4545,16 @@ def main() -> int:
             "X": lambda: run_artifact(k, pipe, repo),
             "M": lambda: run_mesh(k, dev, pipe, repo),
         }
+        # subprocesses that need nothing of the phases between begin before
+        # an earlier phase, beside its in-process work: the phase before
+        # which they begin -> {consuming phase: begin}. Phase C runs before
+        # B, so that B's CLI has C's time
+        early = {"C": {"B": lambda: start_cli(golden, repo),
+                       "E": lambda: start_evaluate(repo)},
+                 "S": {"D": lambda: start_slot_clis(repo)},
+                 "U": {"X": lambda: start_artifact_workers(repo)},
+                 "X": {"M": lambda: start_mesh_workers(repo)}}
+        atexit.register(Started.stop_all)
         # the kernels line counts the launches of every path driven: the
         # main path (phase 3), the serving edge (A), the registry and wire
         # protocols (C), the YOLO slot (Y), the SSD slot (S), the other
@@ -4235,11 +4562,15 @@ def main() -> int:
         # pipeline (E), the certify
         # CLIs of training (T), the artifact's batches (X) and one dp = 2
         # batch (M), each counted from 0 just before it
-        for name, run in phases.items():
-            if name in args.phases:
-                counts = run() or {}
-                launches = {kn: launches[kn] + counts.get(kn, 0)
-                            for kn in launches}
+        for name in "ACBYSDUETXM":
+            if name not in args.phases:
+                continue
+            for consumer, begin in early.get(name, {}).items():
+                if consumer in args.phases:
+                    EARLY[consumer] = begin()
+            counts = phases[name]() or {}
+            launches = {kn: launches[kn] + counts.get(kn, 0)
+                        for kn in launches}
         if args.edge_sweep:
             edge_sweep(pipe, golden, scene_bytes)
     sources = {"decode_heatmaps": "decode_heatmaps.cu",

@@ -5,10 +5,12 @@ of the JAX package's `cli/certify.py`, on the GPU).
      480x640 (person detection) on the card, on rendered scenes whose
      keypoints, tight person box and true segment lengths in cm are
      analytic (`training/synthetic.py`);
-  2. writes the trained states (`models/weights.save_training_checkpoint`,
-     f32 `.npz` under --workdir/ckpt) and reloads them through the serving
-     load path (`flax_to_state_dict` -> `InferencePipeline`), checking that
-     the reload equals the trained state;
+  2. writes the trained states as the JAX package's Orbax pipeline
+     checkpoint (`models/weights.save_pipeline_checkpoint`, --workdir/ckpt,
+     which `--checkpoint-dir` serves) and reloads them through the serving
+     load path (`load_pipeline_checkpoint` -> `flax_to_state_dict` ->
+     `InferencePipeline`), checking that the reload equals the trained
+     state;
   3. drives the full served stack (multipart HTTP POST -> batcher -> the
      fused forward with its head-score, NMS and decode kernels -> cm) with
      held-out renders and compares every returned cm segment with analytic
@@ -347,7 +349,7 @@ def check_not_ported(parser, args) -> None:
     )
 
     if args.detector == "ssd":
-        problems = option_problems("ssd_mobilenet", None)
+        problems = option_problems("ssd_mobilenet")
         if problems:
             parser.error("; ".join(problems))
         if args.smoke:
@@ -373,22 +375,21 @@ def device_and_dtype(use_cpu: bool):
     return device, torch.float32 if use_cpu else torch.bfloat16
 
 
-def reload_state(path: str, trained=None) -> dict:
-    """A training checkpoint through the serving load path
-    (`load_training_checkpoint` -> `flax_to_state_dict`); when the state
-    just trained is given, the reload must equal it."""
+def reload_state(tree: dict, trained=None) -> dict:
+    """A flax tree read from a checkpoint through the serving load path
+    (`flax_to_state_dict`); when the state just trained is given, the
+    reload must equal it."""
     import torch
 
     from human_body_proportion_estimation_tpu_torch.models import weights
 
-    tree, _ = weights.load_training_checkpoint(path)
     state = weights.flax_to_state_dict(tree)
     if trained is not None:
         bad = [k for k, v in trained.items()
                if not torch.equal(state[k], v.to(state[k].dtype))]
         if bad or set(state) != set(trained):
-            raise RuntimeError(f"reloaded checkpoint {path} differs from "
-                               f"the trained state: {bad[:5]}")
+            raise RuntimeError(f"the reloaded checkpoint differs from the "
+                               f"trained state: {bad[:5]}")
     return state
 
 
@@ -507,8 +508,6 @@ def main(argv=None):
     val_scenes = [generate_scene(val_rng, img_hw, **scene_kwargs)
                   for _ in range(args.val_scenes)]
 
-    det_path = os.path.join(ckpt_dir, "det.npz")
-    pose_path = os.path.join(ckpt_dir, "pose.npz")
     det_state = pose_state = None
     if args.reuse_checkpoint:
         log(f"reusing checkpoint {ckpt_dir}")
@@ -568,16 +567,20 @@ def main(argv=None):
             log(f"det training: {args.det_steps * args.det_batch / (time.perf_counter() - t0):.1f} imgs/s")  # noqa: E501
             report["det_loss_first"] = det_losses[0]
             report["det_loss_last"] = det_losses[-1]
-            weights.save_training_checkpoint(det_path, det_state,
-                                             args.det_steps)
-        weights.save_training_checkpoint(pose_path, pose_state,
-                                         args.pose_steps)
+            det_vars = weights.state_dict_to_flax(det_state)
+        else:
+            # the SSD serves its own real weights; the checkpoint's det
+            # slot is a placeholder, as the JAX CLI writes
+            det_vars = {"unused": np.zeros((1,), np.float32)}
+        weights.save_pipeline_checkpoint(
+            ckpt_dir, det_vars, weights.state_dict_to_flax(pose_state))
         log(f"checkpoint saved to {ckpt_dir}")
 
     # ------------------- reload via the serving load path ----------------
-    det_r = (reload_state(det_path, det_state) if args.detector == "trained"
-             else None)
-    pose_r = reload_state(pose_path, pose_state)
+    det_vars, pose_vars = weights.load_pipeline_checkpoint(ckpt_dir)
+    det_r = (reload_state(det_vars, det_state)
+             if args.detector == "trained" else None)
+    pose_r = reload_state(pose_vars, pose_state)
 
     # direct pose sanity on held-out crops (fail fast pre-serving)
     report["pose_val"] = pose_val_report(pose_model, pose_r, val_scenes,

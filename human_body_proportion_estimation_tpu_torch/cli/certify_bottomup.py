@@ -5,9 +5,10 @@ of the JAX package's `cli/certify_bottomup.py`, on the GPU).
   1. trains HigherHRNet (W32 trunk) @ 512x512 on the card on rendered
      multi-person scenes (1-3 disjoint figures) with the joint
      peak-weighted heatmap MSE + AE grouping loss (`training/bottomup.py`);
-  2. writes the trained state (`models/weights.save_training_checkpoint`)
-     and reloads it through the serving load path, checking that the
-     reload equals the trained state;
+  2. writes the trained state as the JAX package's Orbax pose checkpoint
+     (`models/weights.save_pose_checkpoint`, --workdir/ckpt/pose) and
+     reloads it through the serving load path (`load_pose_checkpoint`),
+     checking that the reload equals the trained state;
   3. direct sweep: `BottomUpPipeline.infer_images` on held-out
      multi-person scenes, IoU-matching predicted persons to truth, and
      per-person per-segment cm against the PATH truth
@@ -270,7 +271,7 @@ def main(argv=None):
     device, dtype = device_and_dtype(args.cpu)
     t_start = time.time()
     os.makedirs(args.workdir, exist_ok=True)
-    ckpt_path = os.path.join(args.workdir, "ckpt", "pose.npz")
+    ckpt_dir = os.path.join(args.workdir, "ckpt")
 
     def log(msg):
         print(f"[certify-bu +{time.time() - t_start:7.1f}s] {msg}",
@@ -327,7 +328,7 @@ def main(argv=None):
 
     pose_state = None
     if args.reuse_checkpoint:
-        log(f"reusing checkpoint {ckpt_path}")
+        log(f"reusing checkpoint {ckpt_dir}")
     else:
         imgs, kp, vis = CB.bottomup_arrays(train_scenes, args.max_people)
         log(f"dataset {imgs.shape} ({imgs.nbytes / 1e6:.0f} MB on the "
@@ -345,10 +346,11 @@ def main(argv=None):
         log(f"training: {args.steps * args.batch / (time.perf_counter() - t0):.1f} imgs/s")  # noqa: E501
         report["loss_first"] = losses[0]
         report["loss_last"] = losses[-1]
-        weights.save_training_checkpoint(ckpt_path, pose_state, args.steps)
-        log(f"checkpoint saved to {ckpt_path}")
+        weights.save_pose_checkpoint(ckpt_dir,
+                                     weights.state_dict_to_flax(pose_state))
+        log(f"checkpoint saved to {ckpt_dir}")
 
-    pose_r = reload_state(ckpt_path, pose_state)
+    pose_r = reload_state(weights.load_pose_checkpoint(ckpt_dir), pose_state)
     pipeline = _Pipe(pose_state=pose_r, max_people=args.max_people,
                      model=make_model(), device=device, dtype=dtype)
 

@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import importlib.util
 import os
 import sys
 from typing import List, Optional, Tuple
@@ -12,26 +11,17 @@ from human_body_proportion_estimation_tpu_torch.pipeline.host import (
 )
 
 
-def has_tensorstore() -> bool:
-    return importlib.util.find_spec("tensorstore") is not None
-
-
-def option_problems(detector: Optional[str], checkpoint_dir: Optional[str],
+def option_problems(detector: Optional[str],
                     bottom_up: bool = False) -> List[str]:
     """Why this machine cannot serve the options given, before anything is
     built (empty when it can): the SSD slot with the reference's
     ssd.tflite absent (JAX's SSD is never random: no fallback to random
-    weights), `--checkpoint-dir` without the tensorstore package (the
-    port reads Orbax checkpoints through it, `models.weights`)."""
+    weights)."""
     from human_body_proportion_estimation_tpu_torch.models.tflite_import import (  # noqa: E501
         DEFAULT_TFLITE_PATH,
     )
 
     msgs = []
-    if checkpoint_dir and not has_tensorstore():
-        msgs.append(f"--checkpoint-dir {checkpoint_dir}: reading an Orbax "
-                    "checkpoint needs the tensorstore package, which is "
-                    "not installed")
     if (detector == "ssd_mobilenet" and not bottom_up
             and not os.path.exists(DEFAULT_TFLITE_PATH)):
         msgs.append(f"--detector ssd_mobilenet: the SSD weights "
@@ -77,7 +67,7 @@ def build_pipeline(args=None) -> InferencePipeline:
     before anything is built."""
     detector = getattr(args, "detector", None) or "efficientdet_lite4"
     checkpoint_dir = getattr(args, "checkpoint_dir", None)
-    exit_on_problems(option_problems(detector, checkpoint_dir))
+    exit_on_problems(option_problems(detector))
     det_state = pose_state = None
     if checkpoint_dir:
         det_state, pose_state = checkpoint_states(checkpoint_dir, detector)

@@ -10,10 +10,10 @@ The reference has no evaluation entry point; its accuracy claim is the
 upstream zoos' published COCO numbers (SURVEY §6). The flags are the JAX
 CLI's. `--detector` defaults to `ssd_mobilenet` as there (the real
 weights of the reference's ssd.tflite; exit code 2 naming the file when
-it is absent); `--checkpoint-dir` reads an Orbax checkpoint through
-tensorstore (`cli/common.build_pipeline`); `--compile-cache-dir` and
-`--no-compile-cache` say where the CUDA kernels are built and found
-(`utils/compile_cache`).
+it is absent); `--checkpoint-dir` reads an Orbax checkpoint
+(`cli/common.build_pipeline`, `models/orbax_store`);
+`--compile-cache-dir` and `--no-compile-cache` say where the CUDA kernels
+are built and found (`utils/compile_cache`).
 
 Caveat (by design, shared with the reference): the fused pipeline keeps
 at most `max_persons` (3) slots an image, the reference's top-3 ensemble
@@ -166,9 +166,8 @@ def build_parser() -> argparse.ArgumentParser:
              "is absent)",
     )
     parser.add_argument("--checkpoint-dir", default=None,
-                        help="orbax checkpoint dir (read through "
-                             "tensorstore; the SSD detector takes only its "
-                             "pose slot)")
+                        help="orbax checkpoint dir (the SSD detector "
+                             "takes only its pose slot)")
     parser.add_argument("--limit", type=int, default=0,
                         help="evaluate only the first N images (0 = all)")
     parser.add_argument("--batch-size", type=int, default=8)

@@ -16,9 +16,9 @@ without building a model. The program is exported on the GPU and serves
 there; `--cpu` exports an f32 program for the CPU instead. The JAX flags,
 plus `--cpu`. `--detector ssd_mobilenet` (the JAX default) bakes in the
 real weights of the reference's ssd.tflite, and exits 2 naming the file
-when it is absent; `--checkpoint-dir` reads an Orbax checkpoint through
-tensorstore (exit 2 without it), of which the SSD slot takes only the
-pose side, as in JAX.
+when it is absent; `--checkpoint-dir` reads an Orbax checkpoint
+(`models/orbax_store`), of which the SSD slot takes only the pose side, as
+in JAX.
 """
 
 from __future__ import annotations
@@ -46,8 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
              "detector",
     )
     parser.add_argument("--checkpoint-dir", default=None,
-                        help="orbax checkpoint dir with det/pose params "
-                             "(read through tensorstore)")
+                        help="orbax checkpoint dir with det/pose params")
     parser.add_argument("--batch-size", type=int, default=16,
                         help="fixed batch size of the exported program")
     parser.add_argument(
@@ -72,7 +71,7 @@ def main(argv=None):
     )
 
     args = build_parser().parse_args(argv)
-    exit_on_problems(option_problems(args.detector, args.checkpoint_dir,
+    exit_on_problems(option_problems(args.detector,
                                      bottom_up=args.bottom_up))
 
     import torch

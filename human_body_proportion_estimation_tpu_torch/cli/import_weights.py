@@ -21,9 +21,9 @@ as in JAX, and serves at random with the server's loud warning):
   --yolo-torch                ultralytics yolov5 state_dict (.pt); fills
                               the detector slot instead of EfficientDet
 
-The checkpoint is written through tensorstore (`models/weights.
-save_pipeline_checkpoint`), in the layout the JAX package's
-`load_pipeline_checkpoint` reads too.
+The checkpoint is written by the port's Orbax store (`models/weights.
+save_pipeline_checkpoint`, `models/orbax_store`), in the layout the JAX
+package's `load_pipeline_checkpoint` reads too.
 """
 
 from __future__ import annotations

@@ -22,24 +22,18 @@ reads). Loaded with `load_state_dict(..., strict=True)`, a flax leaf the
 port has no place for, or a port tensor the checkpoint does not fill,
 raises. `state_dict_to_flax` is the exact inverse.
 
-Writers, for the trainers (`training/`):
-  * `save_compact_checkpoint`: the JAX package's compact `.npz`
-    (weights.py:85-100): f16 leaves under '/'-joined flax paths, in the
-    order of flax's sorted trees, so the JAX `load_compact_checkpoint`
-    reads what the port writes.
-  * `save_training_checkpoint` / `load_training_checkpoint`: the
-    `{params, batch_stats, step}` tree the JAX trainers checkpoint, as an
-    f32 `.npz`. The JAX package writes it with Orbax
-    (weights.py:39-66, training/loop.py:81-94).
+Writer, for the trainers (`training/`): `save_compact_checkpoint`, the
+JAX package's compact `.npz` (weights.py:85-100): f16 leaves under
+'/'-joined flax paths, in the order of flax's sorted trees, so the JAX
+`load_compact_checkpoint` reads what the port writes.
 
-Orbax checkpoints (`--checkpoint-dir`): `load_pipeline_checkpoint` /
-`load_pose_checkpoint` read the directories the JAX package's
-`save_pipeline_checkpoint` / `save_pose_checkpoint` write, and the
-`save_*` twins write directories those read. `orbax.checkpoint` imports
-jax, so the port reads and writes the format itself through
-`tensorstore`, imported inside these functions: one PyTree checkpoint
-a slot (`det/`, `pose/`), its tree in `_METADATA`, every leaf a zarr v2
-array named by its '.'-joined keys in an OCDBT key-value store.
+Orbax checkpoints (`--checkpoint-dir`, the trainers' checkpoints):
+`load_pipeline_checkpoint` / `load_pose_checkpoint` read the directories
+the JAX package's `save_pipeline_checkpoint` / `save_pose_checkpoint`
+write, and the `save_*` twins write directories those read: one PyTree
+checkpoint a slot (`det/`, `pose/`), read and written by the port's own
+store (`models/orbax_store.py`: OCDBT + zarr v2 with numpy, zstd through
+the package's C++ decoder).
 
 Importers of the official torch pose checkpoints (numpy only; the port of
 weights.py:159-477): `import_torch_hrnet` / `export_torch_hrnet`
@@ -51,9 +45,7 @@ flax tree and back; `flax_to_state_dict` then gives the port's weights.
 from __future__ import annotations
 
 import contextlib
-import json
 import os
-import shutil
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -61,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from human_body_proportion_estimation_tpu_torch.models import orbax_store
 from human_body_proportion_estimation_tpu_torch.models.hrnet import (
     HRNET_W32,
     HRNetConfig,
@@ -143,6 +136,8 @@ def flax_to_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for collection, mapping in (("params", _PARAM_LEAF),
                                 ("batch_stats", _STAT_LEAF)):
         for path, leaf in _leaves(variables.get(collection, {})):
+            if isinstance(leaf, torch.Tensor):   # a bfloat16 leaf
+                leaf = leaf.float()
             arr = np.array(leaf, np.float32)  # a writable copy
             if path[-1] not in mapping:
                 raise KeyError(f"{collection}/{'/'.join(path)}: unknown leaf")
@@ -225,139 +220,29 @@ def save_compact_checkpoint(path: str, det_state, pose_state) -> None:
     np.savez_compressed(path, **flat)
 
 
-def save_training_checkpoint(path: str, state: Mapping[str, torch.Tensor],
-                             step: int = 0) -> None:
-    """Write one model's `state_dict` as the `{params, batch_stats, step}`
-    tree, an f32 `.npz`, exactly."""
-    flat = _flat_flax(state_dict_to_flax(state))
-    flat["step"] = np.asarray(step, np.int64)
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, **flat)
-
-
-def load_training_checkpoint(path: str) -> Tuple[Dict, int]:
-    """(flax tree {'params', 'batch_stats'} of f32 numpy arrays, step) of a
-    `save_training_checkpoint` file; `flax_to_state_dict` turns the tree
-    into the port's `state_dict`."""
-    data = np.load(path)
-    tree: Dict[str, Dict] = {}
-    for name in data.files:
-        if name == "step":
-            continue
-        parts = name.split("/")
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = data[name]
-    return tree, int(data["step"])
-
-
-# --------------------------------------------------------------------- #
-# Orbax checkpoints, through tensorstore
-
-
-def _tensorstore():
-    try:
-        import tensorstore
-    except ImportError as e:
-        raise ImportError(
-            "reading or writing an Orbax checkpoint (--checkpoint-dir) "
-            f"needs the tensorstore package: {e}") from e
-    return tensorstore
-
-
-def _ocdbt_spec(directory: str, name: str) -> Dict[str, Any]:
-    return {"driver": "zarr", "kvstore": {
-        "driver": "ocdbt", "base": f"file://{os.path.abspath(directory)}/",
-        "path": f"{name}/"}}
-
-
-def load_orbax_tree(directory: str) -> Dict[str, Any]:
-    """The tree of one Orbax PyTree checkpoint directory of arrays (as the
-    JAX package's `PyTreeCheckpointer().restore` gives a pipeline slot):
-    nested dicts of numpy arrays. Every leaf is opened and read at once
-    (tensorstore futures)."""
-    ts = _tensorstore()
-    with open(os.path.join(directory, "_METADATA")) as fh:
-        meta = json.load(fh)
-    ctx = ts.Context()
-    paths = [[str(k["key"]) for k in e["key_metadata"]]
-             for e in meta["tree_metadata"].values()]
-    opened = [ts.open(_ocdbt_spec(directory, ".".join(keys)), open=True,
-                      context=ctx) for keys in paths]
-    reads = [f.result().read() for f in opened]
-    tree: Dict[str, Any] = {}
-    for keys, read in zip(paths, reads):
-        node = tree
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = read.result()
-    return tree
-
-
-def save_orbax_tree(directory: str, tree: Mapping[str, Any]) -> None:
-    """Write a nested dict of arrays as the Orbax PyTree checkpoint the JAX
-    package writes (OCDBT, zarr v2 leaves, `_METADATA`), replacing
-    `directory` (orbax's `force=True`); one tensorstore transaction, so
-    the store commits once."""
-    ts = _tensorstore()
-    directory = os.path.abspath(directory)
-    if os.path.exists(directory):
-        shutil.rmtree(directory)
-    os.makedirs(directory)
-    ctx, txn = ts.Context(), ts.Transaction()
-    leaves = {name: np.ascontiguousarray(arr)
-              for name, arr in _flat_flax(tree).items()}
-    opened = []
-    for name, arr in leaves.items():
-        spec = _ocdbt_spec(directory, name.replace("/", "."))
-        spec["metadata"] = {
-            "shape": list(arr.shape), "chunks": list(arr.shape),
-            "dtype": arr.dtype.str, "compressor": {"id": "zstd", "level": 1},
-            "dimension_separator": "."}
-        opened.append(ts.open(spec, create=True, context=ctx,
-                              transaction=txn))
-    writes = [f.result().write(arr) for f, arr in zip(opened,
-                                                     leaves.values())]
-    for w in writes:
-        w.result()
-    txn.commit_sync()
-    meta = {str(tuple(name.split("/"))): {
-        "key_metadata": [{"key": k, "key_type": 2}
-                         for k in name.split("/")],
-        "value_metadata": {"value_type": "np.ndarray",
-                           "skip_deserialize": False}}
-        for name in leaves}
-    with open(os.path.join(directory, "_METADATA"), "w") as fh:
-        json.dump({"tree_metadata": meta, "use_ocdbt": True,
-                   "use_zarr3": False,
-                   "store_array_data_equal_to_fill_value": True,
-                   "custom_metadata": None}, fh)
-
-
 def load_pipeline_checkpoint(directory: str) -> Tuple[Dict, Dict]:
     """(det_vars, pose_vars) flax trees of a pipeline checkpoint directory
     (`det/` and `pose/`, the JAX package's `save_pipeline_checkpoint`);
     `flax_to_state_dict` turns each into the port's `state_dict`."""
-    return (load_orbax_tree(os.path.join(directory, "det")),
-            load_orbax_tree(os.path.join(directory, "pose")))
+    return (orbax_store.load_tree(os.path.join(directory, "det")),
+            orbax_store.load_tree(os.path.join(directory, "pose")))
 
 
 def save_pipeline_checkpoint(directory: str, det_vars: Mapping,
                              pose_vars: Mapping) -> None:
     """Write detector + pose flax trees (`state_dict_to_flax` of port
     weights) as the JAX package's pipeline checkpoint."""
-    save_orbax_tree(os.path.join(directory, "det"), det_vars)
-    save_orbax_tree(os.path.join(directory, "pose"), pose_vars)
+    orbax_store.save_tree(os.path.join(directory, "det"), det_vars)
+    orbax_store.save_tree(os.path.join(directory, "pose"), pose_vars)
 
 
 def load_pose_checkpoint(directory: str) -> Dict:
     """The pose slot alone (bottom-up checkpoints have no detector)."""
-    return load_orbax_tree(os.path.join(directory, "pose"))
+    return orbax_store.load_tree(os.path.join(directory, "pose"))
 
 
 def save_pose_checkpoint(directory: str, pose_vars: Mapping) -> None:
-    save_orbax_tree(os.path.join(directory, "pose"), pose_vars)
+    orbax_store.save_tree(os.path.join(directory, "pose"), pose_vars)
 
 
 # --------------------------------------------------------------------- #

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels (`csrc/*.cu`).
+"""Build and load the port's CUDA kernels (`csrc/*.cu`), and the C++
+libraries the port compiles with g++ (`build_cxx_library`).
 
 Each source is compiled by its own `nvcc` process, all started together,
 into an object for `sm_90a` (headers shared between them are
@@ -29,6 +30,8 @@ DEFAULT_BUILD_DIR = os.path.join(PKG_DIR, "build")
 # where the kernel library and the native serving core are built and found
 # (`utils/compile_cache.enable` repoints it; read at each build)
 BUILD_DIR = DEFAULT_BUILD_DIR
+
+CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -128,6 +131,41 @@ def load_library() -> ctypes.CDLL:
                lib.hbpe_head_score_levels, lib.hbpe_empty_launch):
         fn.restype = ctypes.c_int
     return lib
+
+
+def cxx_library_path(source: str, stem: str,
+                     build_dir: str | None = None) -> str:
+    """Where the library built from `source` with `CXX_FLAGS` lives (in
+    `BUILD_DIR` by default): `<stem>_<hash of flags and source>.so`."""
+    build_dir = build_dir or BUILD_DIR
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    with open(source, "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(build_dir, f"{stem}_{h.hexdigest()[:16]}.so")
+
+
+def build_cxx_library(source: str, stem: str,
+                      build_dir: str | None = None) -> str:
+    """Compile one C++ source into a shared library with g++ (`$CXX` if
+    set) unless a library built from the same source and flags is there;
+    returns its path. A failed build raises with the compiler's output."""
+    build_dir = build_dir or BUILD_DIR
+    path = cxx_library_path(source, stem, build_dir)
+    if os.path.exists(path):
+        return path
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(f"g++ not found: {os.path.basename(source)} is "
+                           "built at first use")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        out = os.path.join(tmp, "lib.so")
+        done = subprocess.run([cxx, *CXX_FLAGS, "-o", out, source],
+                              capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"g++ failed on {source}:\n{done.stderr}")
+        os.replace(out, path)
+    return path
 
 
 def timed_build(verbose: bool = False) -> float:

@@ -19,13 +19,9 @@ The build runs at the first `NativeBatcher`, not at import.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import os
 import queue
-import shutil
-import subprocess
-import tempfile
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -39,7 +35,6 @@ SOURCE = os.path.join(
         __file__)))),
     "native", "serving_core.cpp",
 )
-CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -48,32 +43,14 @@ _lib_lock = threading.Lock()
 def library_path(build_dir: str | None = None) -> str:
     """Where the core built from the current source and flags lives (in
     `ops/build.BUILD_DIR` by default)."""
-    build_dir = build_dir or _build.BUILD_DIR
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as fh:
-        h.update(fh.read())
-    return os.path.join(build_dir, f"libhbpe_serving_{h.hexdigest()[:16]}.so")
+    return _build.cxx_library_path(SOURCE, "libhbpe_serving", build_dir)
 
 
 def build_library(build_dir: str | None = None) -> str:
     """Compile the native core into `build_dir` (`ops/build.BUILD_DIR` by
     default) unless a library built from the same source and flags is
     there; returns its path."""
-    build_dir = build_dir or _build.BUILD_DIR
-    path = library_path(build_dir)
-    if os.path.exists(path):
-        return path
-    cxx = os.environ.get("CXX") or shutil.which("g++")
-    if not cxx:
-        raise RuntimeError("g++ not found: the native serving core is built "
-                           "from native/serving_core.cpp at first use")
-    os.makedirs(build_dir, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        out = os.path.join(tmp, "lib.so")
-        subprocess.run([cxx, *CXX_FLAGS, "-o", out, SOURCE], check=True,
-                       capture_output=True, text=True)
-        os.replace(out, path)
-    return path
+    return _build.build_cxx_library(SOURCE, "libhbpe_serving", build_dir)
 
 
 def load_library() -> ctypes.CDLL:

@@ -913,8 +913,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--checkpoint-dir", default=None,
                         help="orbax checkpoint dir with det/pose params "
-                             "(read through tensorstore; the SSD detector "
-                             "takes only its pose slot)")
+                             "(models/orbax_store; the SSD detector takes "
+                             "only its pose slot)")
     parser.add_argument(
         "--artifact-dir", default=None,
         help="serve from an exported artifact directory (torch.export "
@@ -943,10 +943,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     # --bottom-up and --artifact-dir never read --detector (the JAX server
     # returns before it does), so the default ssd_mobilenet serves them
-    # whether ssd.tflite is there or not; the artifact reads no checkpoint
+    # whether ssd.tflite is there or not
     problems = option_problems(
-        args.detector, None if args.artifact_dir else args.checkpoint_dir,
-        bottom_up=bool(args.bottom_up or args.artifact_dir))
+        args.detector, bottom_up=bool(args.bottom_up or args.artifact_dir))
     if problems:
         parser.error("; ".join(problems))
     if args.grpc_port:

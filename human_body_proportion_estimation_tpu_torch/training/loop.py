@@ -3,9 +3,9 @@ JAX package's `training/loop.py`).
 
 Pulls augmented batches from `training/data`, builds heatmap targets,
 drives `trainer.train_step` on the model's device, logs losses, and
-checkpoints through `models/weights.save_training_checkpoint` (an f32
-`.npz` of `{params, batch_stats, step}` per checkpoint, in place of the
-JAX package's Orbax directory). `mesh=` trains with the sharded step over
+checkpoints as the JAX package does: an Orbax PyTree checkpoint
+`step_N/` of `{params, batch_stats, step}` in flax's layout
+(`models/orbax_store.save_tree`; `step` a scalar int32). `mesh=` trains with the sharded step over
 a dp x tp mesh of processes (`trainer.make_sharded_train_step`): every
 process draws the same batches and takes its rows, and process 0 writes
 the checkpoints.
@@ -20,8 +20,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from human_body_proportion_estimation_tpu_torch.models import orbax_store
 from human_body_proportion_estimation_tpu_torch.models.weights import (
-    save_training_checkpoint,
+    state_dict_to_flax,
 )
 from human_body_proportion_estimation_tpu_torch.training import (
     data as data_lib,
@@ -88,6 +89,8 @@ def train_pose(
 
 
 def _save(directory: str, state, step: int):
-    path = os.path.join(os.path.abspath(directory), f"step_{step}.npz")
-    save_training_checkpoint(path, state.model.state_dict(), step)
+    tree = state_dict_to_flax(state.model.state_dict())
+    tree["step"] = np.asarray(step, np.int32)
+    orbax_store.save_tree(
+        os.path.join(os.path.abspath(directory), f"step_{step}"), tree)
     log.info("checkpoint_saved", step=step, directory=directory)

@@ -2,14 +2,15 @@
 counterpart of the JAX package's `utils/compile_cache.py` (its persistent
 XLA compilation cache).
 
-The port compiles two things at first use: the CUDA kernel library
-(`ops/build.py`, nvcc) and the native batcher's core (`serve/native.py`,
-g++). Both are built into `ops/build.BUILD_DIR` under a name that hashes
-their sources and flags, and a later process that finds the library there
+The port compiles three things at first use: the CUDA kernel library
+(`ops/build.py`, nvcc), the native batcher's core (`serve/native.py`,
+g++) and the zstd decoder of its Orbax store (`utils/zstd.py`, g++).
+Each is built into `ops/build.BUILD_DIR` under a name that hashes its
+sources and flags, and a later process that finds the library there
 loads it without compiling. That directory is the cache: by default the
 package's gitignored `build/`.
 
-`enable(directory)` points both builds at `directory`; `disable()` points
+`enable(directory)` points the builds at `directory`; `disable()` points
 them at a fresh temporary directory of the process, removed at exit, so
 that it compiles everything anew (what `--no-compile-cache` means to the
 JAX package: no persistent cache, every process compiles). Either must

@@ -91,7 +91,9 @@ def stream_video_bytes(
 
     if frame_stride < 1:
         raise ValueError(f"frame_stride must be >= 1, got {frame_stride}")
-    tmp = tempfile.NamedTemporaryFile(suffix=".video", delete=False)
+    # a suffix of its own: the JAX package's tests count its "*.video"
+    # files in the shared temporary directory
+    tmp = tempfile.NamedTemporaryFile(suffix=".hbpe-video", delete=False)
     try:
         tmp.write(data)
         tmp.close()

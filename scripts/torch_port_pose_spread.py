@@ -88,8 +88,9 @@ def config() -> PipelineConfig:
 def train_pose(kind: str, seed: int, steps: int, log,
                init_from: str = "") -> dict:
     """`cli.certify`'s pose training on the card in `kind`'s dtype, from
-    flax's init drawn by the port or from the training checkpoint
-    `init_from`; returns the calibrated state and the run's figures."""
+    flax's init drawn by the port or from the pose slot of the Orbax
+    checkpoint directory `init_from`; returns the calibrated state and the
+    run's figures."""
     cfg = config()
     img_hw = (cfg.detector.input_height, cfg.detector.input_width)
     rng = np.random.default_rng(seed)
@@ -99,8 +100,8 @@ def train_pose(kind: str, seed: int, steps: int, log,
     dtype = torch.bfloat16 if kind == "bf16" else torch.float32
     model = HRNet(HRNET_W32, dtype=dtype).to("cuda")
     if init_from:
-        tree, _ = weights.load_training_checkpoint(init_from)
-        model.load_state_dict(weights.flax_to_state_dict(tree))
+        model.load_state_dict(weights.flax_to_state_dict(
+            weights.load_pose_checkpoint(init_from)))
     else:
         init_flax_default(model, seed)
     t0 = time.perf_counter()
@@ -158,10 +159,10 @@ def main(argv=None) -> int:
                     help="the training run's seed (bf16 / f32)")
     ap.add_argument("--steps", type=int, default=4000)
     ap.add_argument("--init-from", default="",
-                    help="train from this training checkpoint (JAX's own "
-                         "init: python -m tests.test_torch_port_train_"
-                         "goldens --pose-init PATH) instead of the port's "
-                         "draw of flax's init")
+                    help="train from the pose slot of this Orbax "
+                         "checkpoint directory (JAX's own init: python -m "
+                         "tests.test_torch_port_train_goldens --pose-init "
+                         "DIR) instead of the port's draw of flax's init")
     ap.add_argument("--val-seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
@@ -209,11 +210,8 @@ def main(argv=None) -> int:
 
     with tempfile.TemporaryDirectory() as work:
         ckpt = os.path.join(work, "ckpt")
-        weights.save_training_checkpoint(
-            os.path.join(ckpt, "det.npz"),
-            weights.flax_to_state_dict(det_tree))
-        weights.save_training_checkpoint(os.path.join(ckpt, "pose.npz"),
-                                         pose_state)
+        weights.save_pipeline_checkpoint(
+            ckpt, det_tree, weights.state_dict_to_flax(pose_state))
         result["served"] = {}
         for s in args.val_seeds:
             code = cli.main(["--det-arch", "lite4", "--reuse-checkpoint",

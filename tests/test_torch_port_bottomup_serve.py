@@ -13,8 +13,9 @@ values to 1e-3; the hbpe gRPC Estimate of the
 port against its own file route; the registry's `higherhrnet` runs the
 pipeline's module (the JAX registry shares a bottom-up pipeline's too);
 and the server's flag matrix: `--bottom-up` with the default detector
-(`ssd_mobilenet`) serves, with `--checkpoint-dir` on a machine without
-tensorstore it exits 2 naming the package, with `--data-parallel 2`
+(`ssd_mobilenet`) serves, with `--checkpoint-dir` it reads the pose slot
+of a JAX-written checkpoint with tensorstore kept from the port, with
+`--data-parallel 2`
 (alone or beside `--artifact-dir`) it exits 2 naming the CUDA devices
 it lacks (tests/conftest.py hides every GPU).
 """
@@ -275,21 +276,46 @@ def test_bottom_up_serves_with_the_default_detector(certified, monkeypatch,
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--checkpoint-dir", "x"], "needs the tensorstore package"),
+    (["--checkpoint-dir", "x"], "the checkpoint's pose slot"),
     (["--data-parallel", "2"], "--data-parallel 2: 2 devices asked for"),
     (["--artifact-dir", "x", "--data-parallel", "2"],
      "--data-parallel 2: 2 devices asked for"),
 ])
 def test_bottom_up_exits_on_options_not_ported(extra, item, monkeypatch,
-                                               capsys):
+                                               capsys, tmp_path):
+    """--data-parallel beyond this machine's devices exits 2 naming it,
+    before anything is built; --checkpoint-dir reads the pose slot of a
+    checkpoint the JAX package wrote, with tensorstore kept from the
+    port, into the pipeline it builds."""
     def no_model(*a, **k):
         raise AssertionError("a model was built")
 
-    from human_body_proportion_estimation_tpu_torch.cli import common
-
     monkeypatch.setattr(tbottomup, "BottomUpPipeline", no_model)
-    # a machine without tensorstore (--checkpoint-dir reads through it)
-    monkeypatch.setattr(common, "has_tensorstore", lambda: False)
+    if extra[0] == "--checkpoint-dir":
+        from human_body_proportion_estimation_tpu_torch.models.weights import (  # noqa: E501
+            flax_to_state_dict,
+        )
+        from tests.torch_port_orbax import (
+            block_tensorstore,
+            jax_checkpoint,
+            states_equal,
+        )
+
+        class Built(Exception):
+            pass
+
+        def built(**kw):
+            raise Built(kw)
+
+        _, pose = jax_checkpoint(str(tmp_path / "x"))
+        block_tensorstore(monkeypatch)
+        monkeypatch.setattr(tbottomup, "BottomUpPipeline", built)
+        with pytest.raises(Built) as caught:
+            tserver.main(["--bottom-up", "--checkpoint-dir",
+                          str(tmp_path / "x")])
+        assert states_equal(caught.value.args[0]["pose_state"],
+                            flax_to_state_dict(pose)), item
+        return
     with pytest.raises(SystemExit) as exc:
         tserver.main(["--bottom-up", *extra])
     assert exc.value.code == 2

@@ -1,9 +1,10 @@
 """The port's checkpoints and certification CLIs against the JAX
-package's: `models/weights` (`state_dict_to_flax`, the compact and the
-training checkpoints), the head-score weight cache across a train step,
-and `cli/certify` / `cli/certify_bottomup` (flags, report keys, the
-options refused before anything is built, no fallback to the CPU). The
-CLIs run end to end with `--smoke --cpu` on a few steps."""
+package's: `models/weights` (`state_dict_to_flax`, the compact
+checkpoint), the training loop's Orbax checkpoint, the head-score weight
+cache across a train step, and `cli/certify` / `cli/certify_bottomup`
+(flags, report keys, the Orbax `ckpt/` they write, the options refused
+before anything is built, no fallback to the CPU). The CLIs run end to
+end with `--smoke --cpu` on a few steps."""
 
 import argparse
 import ast
@@ -51,6 +52,7 @@ from human_body_proportion_estimation_tpu_torch.training import (
     detection as D,
 )
 from tests.test_torch_port_models import _port_edet_config
+from tests.torch_port_orbax import assert_bit_equal, block_tensorstore
 from tests.tiny_models import tiny_edet_config
 
 POSE = dict(width=16, stage_modules=(1, 1, 1), blocks_per_branch=1,
@@ -133,18 +135,35 @@ def test_compact_checkpoint_loads_in_jax_with_the_same_forward(tmp_path):
                                rtol=1e-4, atol=1e-4)
 
 
-def test_training_checkpoint_round_trip_is_exact(tmp_path):
-    sd = random_state(HigherHRNet(HRNetConfig(**POSE), num_deconv_blocks=1),
-                      5)
-    path = str(tmp_path / "ckpt" / "pose.npz")
-    weights.save_training_checkpoint(path, sd, step=123)
-    tree, step = weights.load_training_checkpoint(path)
-    assert step == 123
-    assert set(tree) == {"params", "batch_stats"}
-    back = weights.flax_to_state_dict(tree)
+def test_training_checkpoint_round_trip_is_exact(tmp_path, monkeypatch):
+    """The training loop's checkpoint, an Orbax `step_N/` of `{params,
+    batch_stats, step}` as JAX's `training/loop._save` writes: JAX's
+    `PyTreeCheckpointer` restores what the port writes, the port's reader
+    gives the same tree, and it converts back to the state exactly."""
+    import types
+
+    import orbax.checkpoint as ocp
+
+    from human_body_proportion_estimation_tpu_torch.models import (
+        orbax_store,
+    )
+    from human_body_proportion_estimation_tpu_torch.training import loop
+
+    model = HigherHRNet(HRNetConfig(**POSE), num_deconv_blocks=1)
+    sd = random_state(model, 5)
+    block_tensorstore(monkeypatch)
+    loop._save(str(tmp_path), types.SimpleNamespace(model=model), 123)
+    ref = ocp.PyTreeCheckpointer().restore(str(tmp_path / "step_123"))
+    got = orbax_store.load_tree(str(tmp_path / "step_123"))
+    assert set(got) == {"params", "batch_stats", "step"}
+    assert got["step"].dtype == np.int32 and got["step"].shape == ()
+    assert int(got["step"]) == 123
+    assert_bit_equal(got, jax.tree.map(np.asarray, ref))
+    back = weights.flax_to_state_dict({k: got[k] for k in ("params",
+                                                           "batch_stats")})
     for k, v in sd.items():
         assert torch.equal(back[k], v.to(back[k].dtype)), k
-    assert np.load(path)["params/head1/kernel"].dtype == np.float32
+    assert got["params"]["head1"]["kernel"].dtype == np.float32
 
 
 def test_head_score_cache_refreshes_after_a_train_step():
@@ -232,9 +251,11 @@ def literal_keys(module, func, target):
 
 
 def test_certify_smoke_runs_end_to_end_with_the_jax_report(tmp_path,
-                                                           capsys):
-    """`cli.certify --smoke --cpu` on a few steps: train, checkpoint,
-    reload (checked equal inside), serve over HTTP, COCO eval, gates. The
+                                                           capsys,
+                                                           monkeypatch):
+    """`cli.certify --smoke --cpu` on a few steps: train, checkpoint (Orbax,
+    read by JAX), reload (checked equal inside), serve over HTTP, COCO
+    eval, gates. The
     report's keys are the JAX CLI's on its smoke path (all but the SSD
     sweep's and the compact checkpoint's, which the smoke does not
     write), and so are the keys of each section."""
@@ -260,9 +281,14 @@ def test_certify_smoke_runs_end_to_end_with_the_jax_report(tmp_path,
     for name in ("pose_loss_first", "pose_loss_last", "det_loss_first",
                  "det_loss_last"):
         assert np.isfinite(report[name])
-    tree, step = weights.load_training_checkpoint(
-        str(out / "ckpt" / "pose.npz"))
-    assert step == 4 and "head" in tree["params"]
+    # ckpt/ is the JAX package's pipeline checkpoint: JAX's loader reads
+    # what the port's does, with tensorstore kept from the port
+    block_tensorstore(monkeypatch)
+    det, pose = weights.load_pipeline_checkpoint(str(out / "ckpt"))
+    jdet, jpose = jweights.load_pipeline_checkpoint(str(out / "ckpt"))
+    assert_bit_equal(det, jax.tree.map(np.asarray, jdet))
+    assert_bit_equal(pose, jax.tree.map(np.asarray, jpose))
+    assert "head" in pose["params"] and "class_net" in det["params"]
 
     # --reuse-checkpoint serves what was written, training nothing
     rc = tcli.main(["--smoke", "--cpu", "--workdir", str(out),
@@ -273,7 +299,7 @@ def test_certify_smoke_runs_end_to_end_with_the_jax_report(tmp_path,
 
 
 def test_certify_bottomup_smoke_runs_end_to_end_with_the_jax_report(
-        tmp_path, capsys):
+        tmp_path, capsys, monkeypatch):
     out = tmp_path / "w"
     rc = tcli_bu.main(["--smoke", "--cpu", "--workdir", str(out),
                        "--steps", "3", "--emit-compact",
@@ -293,6 +319,11 @@ def test_certify_bottomup_smoke_runs_end_to_end_with_the_jax_report(
     assert report["input_hw"] == [128, 128] and report["direct"][
         "scenes"] == 4 and report["http"]["scenes"] == 2
     assert np.isfinite(report["loss_first"])
+    # ckpt/pose is the JAX package's pose checkpoint
+    block_tensorstore(monkeypatch)
+    assert_bit_equal(weights.load_pose_checkpoint(str(out / "ckpt")),
+                     jax.tree.map(np.asarray, jweights.load_pose_checkpoint(
+                         str(out / "ckpt"))))
 
 
 @pytest.mark.parametrize("main,argv,item", [

@@ -107,15 +107,23 @@ def test_build_parser_takes_the_jax_options(monkeypatch):
     ["-i", "d", "--checkpoint-dir", "ckpt"],
     ["-i", "d", "--detector", "efficientdet_lite0"],
 ])
-def test_build_pipeline_exits_on_options_not_ported(argv, capsys,
+def test_build_pipeline_exits_on_options_not_ported(argv, tmp_path,
                                                     monkeypatch):
-    """--checkpoint-dir exits 2 naming the tensorstore package on a
-    machine without it (hidden here), before anything is built. The Lite0
-    slot: the pipeline is built (here on the CPU) with the JAX CLI's
-    weights, the certified HRNet-W32 and the detector at random."""
+    """--checkpoint-dir reads a checkpoint the JAX package wrote, with
+    tensorstore kept from the port, and builds the pipeline on its slots.
+    The Lite0 slot: the pipeline is built (here on the CPU) with the JAX
+    CLI's weights, the certified HRNet-W32 and the detector at random."""
     from human_body_proportion_estimation_tpu_torch.cli import common
     from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
         EFFICIENTDET_LITE0,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.weights import (
+        flax_to_state_dict,
+    )
+    from tests.torch_port_orbax import (
+        block_tensorstore,
+        jax_checkpoint,
+        states_equal,
     )
 
     if "efficientdet_lite0" in argv:
@@ -127,8 +135,10 @@ def test_build_pipeline_exits_on_options_not_ported(argv, capsys,
                                        "pose": "synthetic-certified"}
         assert pipe.backend.detector.config == EFFICIENTDET_LITE0
         return
-    monkeypatch.setattr(common, "has_tensorstore", lambda: False)
-    with pytest.raises(SystemExit) as exc:
-        build_pipeline(build_parser("x").parse_args(argv))
-    assert exc.value.code == 2
-    assert "needs the tensorstore package" in capsys.readouterr().err
+    det, pose = jax_checkpoint(str(tmp_path / "ckpt"))
+    block_tensorstore(monkeypatch)
+    monkeypatch.setattr(common, "InferencePipeline", lambda **kw: kw)
+    argv = [a.replace("ckpt", str(tmp_path / "ckpt")) for a in argv]
+    built = build_pipeline(build_parser("x").parse_args(argv))
+    assert states_equal(built["det_state"], flax_to_state_dict(det))
+    assert states_equal(built["pose_state"], flax_to_state_dict(pose))

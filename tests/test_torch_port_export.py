@@ -387,20 +387,47 @@ def _parser_of(main):
 @pytest.mark.parametrize("argv,item", [
     ([], DEFAULT_TFLITE_PATH),
     (["--detector", "efficientdet_lite4", "--checkpoint-dir", "x"],
-     "needs the tensorstore package"),
+     "the checkpoint's slots"),
 ])
 def test_export_cli_exits_on_options_not_ported(argv, item, tmp_path,
                                                 capsys, monkeypatch):
     """Before any model is built, exit 2 naming the reason: the JAX
     default detector (ssd_mobilenet) without the reference's ssd.tflite
-    (absent here), --checkpoint-dir on a machine without tensorstore
-    (hidden here)."""
+    (absent here). --checkpoint-dir reads a checkpoint the JAX package
+    wrote, with tensorstore kept from the port, into the pipeline the
+    artifact is exported from."""
     from human_body_proportion_estimation_tpu_torch.cli import (
-        common,
         export_artifact as tcli,
     )
+    from human_body_proportion_estimation_tpu_torch.models.weights import (
+        flax_to_state_dict,
+    )
+    from human_body_proportion_estimation_tpu_torch.pipeline import host
+    from tests.torch_port_orbax import (
+        block_tensorstore,
+        jax_checkpoint,
+        states_equal,
+    )
 
-    monkeypatch.setattr(common, "has_tensorstore", lambda: False)
+    class Built(Exception):
+        pass
+
+    def built(**kw):
+        raise Built(kw)
+
+    if "--checkpoint-dir" in argv:
+        det, pose = jax_checkpoint(str(tmp_path / "x"))
+        block_tensorstore(monkeypatch)
+        monkeypatch.setattr(host, "InferencePipeline", built)
+        with pytest.raises(Built) as caught:
+            tcli.main(["--out", str(tmp_path / "a"), "--cpu",
+                       *[str(tmp_path / a) if a == "x" else a
+                         for a in argv]])
+        kw = caught.value.args[0]
+        assert states_equal(kw["det_state"], flax_to_state_dict(det)), item
+        assert states_equal(kw["pose_state"], flax_to_state_dict(pose))
+        assert not (tmp_path / "a").exists()
+        return
     with pytest.raises(SystemExit) as exc:
         tcli.main(["--out", str(tmp_path / "a"), *argv])
     assert exc.value.code == 2

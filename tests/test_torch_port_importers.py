@@ -9,9 +9,10 @@ on the CPU, with synthetic inputs as the JAX tests have:
 - `models/tf_import.py`: a TF1 checkpoint written from an EfficientDet-
   Lite0 init (with an ExponentialMovingAverage shadow, which wins) reads
   and imports to the tree JAX's importer gives, exactly;
-- Orbax checkpoints through tensorstore: the port reads what JAX's
-  `save_pipeline_checkpoint` / `save_pose_checkpoint` write, and JAX reads
-  what the port's write, leaf for leaf;
+- Orbax checkpoints (the port's own store, tensorstore kept from it):
+  the port reads what JAX's `save_pipeline_checkpoint` /
+  `save_pose_checkpoint` write, and JAX reads what the port's write, leaf
+  for leaf;
 - `cli/import_weights`: the JAX CLI's flags; a Lite0 TF checkpoint and an
   HRNet .pth go into a checkpoint directory that JAX's loader reads with
   the source tensors in place and `cli.common.build_pipeline` serves
@@ -177,7 +178,10 @@ def test_tf_import_matches_jax(lite0_ckpt):
         ttf.import_tf_efficientdet({}, tree, EFFICIENTDET_LITE0)
 
 
-def test_orbax_checkpoints_cross_read(tmp_path):
+def test_orbax_checkpoints_cross_read(tmp_path, monkeypatch):
+    from tests.torch_port_orbax import block_tensorstore
+
+    block_tensorstore(monkeypatch)
     rng = np.random.default_rng(6)
     det = {"params": {"a": {"kernel": rng.normal(size=(3, 3, 2, 4)).astype(
         np.float32)}}, "batch_stats": {"a": {"mean": np.zeros(4, np.float32)}}}

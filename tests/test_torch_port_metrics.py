@@ -10,8 +10,9 @@ against the JAX package's, on the CPU.
   truth: the same JSON, and the same predictions and ground truths fed to
   the metrics (boxes and keypoints 1e-4 px, scores 1e-4);
 - `cli/evaluate.main`'s flags: the JAX CLI's; `--detector ssd_mobilenet`
-  (the default) without its ssd.tflite and `--checkpoint-dir` without
-  tensorstore exit 2 naming the reason.
+  (the default) without its ssd.tflite exits 2 naming the reason;
+  `--checkpoint-dir` reads a JAX-written checkpoint with tensorstore kept
+  from the port.
 """
 
 import json
@@ -314,14 +315,15 @@ def test_evaluate_flags_are_the_jax_clis(monkeypatch):
 @pytest.mark.parametrize("extra,item", [
     ([], DEFAULT_TFLITE_PATH),
     (["--detector", "efficientdet_lite4", "--checkpoint-dir", "x"],
-     "needs the tensorstore package"),
+     "the checkpoint's slots"),
 ])
 def test_evaluate_exits_on_options_not_ported(extra, item, tmp_path, capsys,
                                               monkeypatch):
     """Before any model is built, exit 2 naming the reason: the JAX
     default detector (ssd_mobilenet) without the reference's ssd.tflite
-    (absent here), --checkpoint-dir on a machine without tensorstore
-    (hidden here); the compile cache flags are accepted."""
+    (absent here). --checkpoint-dir reads a checkpoint the JAX package
+    wrote, with tensorstore kept from the port, into the pipeline it
+    builds; the compile cache flags are accepted."""
     from human_body_proportion_estimation_tpu_torch.cli import common
     from human_body_proportion_estimation_tpu_torch.ops import build
     from human_body_proportion_estimation_tpu_torch.cli import (
@@ -335,10 +337,35 @@ def test_evaluate_exits_on_options_not_ported(extra, item, tmp_path, capsys,
     # it back afterwards
     monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     monkeypatch.setattr(common, "InferencePipeline", no_model)
-    monkeypatch.setattr(common, "has_tensorstore", lambda: False)
+    argv = ["--annotations", str(tmp_path / "a.json"), "--images-dir",
+            str(tmp_path), "--no-compile-cache", "--compile-cache-dir",
+            str(tmp_path), *extra]
+    if "--checkpoint-dir" in extra:
+        from human_body_proportion_estimation_tpu_torch.models.weights import (  # noqa: E501
+            flax_to_state_dict,
+        )
+        from tests.torch_port_orbax import (
+            block_tensorstore,
+            jax_checkpoint,
+            states_equal,
+        )
+
+        class Built(Exception):
+            pass
+
+        def built(**kw):
+            raise Built(kw)
+
+        det, pose = jax_checkpoint(str(tmp_path / "x"))
+        block_tensorstore(monkeypatch)
+        monkeypatch.setattr(common, "InferencePipeline", built)
+        with pytest.raises(Built) as caught:
+            teval.main([str(tmp_path / a) if a == "x" else a for a in argv])
+        kw = caught.value.args[0]
+        assert states_equal(kw["det_state"], flax_to_state_dict(det)), item
+        assert states_equal(kw["pose_state"], flax_to_state_dict(pose))
+        return
     with pytest.raises(SystemExit) as exc:
-        teval.main(["--annotations", str(tmp_path / "a.json"),
-                    "--images-dir", str(tmp_path), "--no-compile-cache",
-                    "--compile-cache-dir", str(tmp_path), *extra])
+        teval.main(argv)
     assert exc.value.code == 2
     assert item in capsys.readouterr().err

@@ -1,6 +1,7 @@
 """Package-level guarantees of the port: it imports without JAX, flax, optax,
-orbax or the JAX package (and without importing TensorFlow or
-tensorstore, which only the weight readers load when called), and its
+orbax, tensorstore, zstandard, google_crc32c or the JAX package (and
+without importing TensorFlow, which only the TF weight reader loads when
+called), no source file of it names those packages in an import, and its
 HTTP edge and registry without grpc or protobuf; the
 committed certified checkpoint converts into the
 full-width port models with every tensor placed; entry points default to
@@ -19,6 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 for blocked in ("jax", "flax", "optax", "orbax", "orbax.checkpoint",
+                "tensorstore", "zstandard", "google_crc32c",
                 "human_body_proportion_estimation_tpu"):
     sys.modules[blocked] = None
 import human_body_proportion_estimation_tpu_torch as port
@@ -41,28 +43,62 @@ for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "parallel.mesh", "parallel.multihost", "training.sharded",
              "models.ssd_mobilenet", "models.tflite_import",
              "models.tf_import", "pipeline.human_detector",
-             "cli.import_weights"):
+             "cli.import_weights", "models.orbax_store", "utils.zstd"):
     assert port.__name__ + "." + name in names, name
 import chip_smoke
 assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax",
                                                    "orbax"))
             and sys.modules[m] is not None]
-# the readers of TensorFlow's and Orbax's formats import them when called
-assert not [m for m in sys.modules if m.split(".")[0] in (
-    "tensorflow", "tensorstore")], "tensorflow or tensorstore imported"
+# the reader of TensorFlow's format imports it when called
+assert not [m for m in sys.modules if m.split(".")[0] == "tensorflow"], \
+    "tensorflow imported"
 print("ok", len(names))
 """
 
 
 def test_port_imports_without_jax():
-    """In a fresh interpreter with jax, flax and the JAX package blocked,
-    every module of the port and chip_smoke.py import."""
+    """In a fresh interpreter with jax, flax, orbax, tensorstore, zstandard,
+    google_crc32c and the JAX package blocked, every module of the port
+    and chip_smoke.py import."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+_NOT_IMPORTED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+                 "zstandard", "google_crc32c",
+                 "human_body_proportion_estimation_tpu")
+
+
+def test_no_source_file_imports_jax_or_orbax_packages():
+    """No source file of the port, nor chip_smoke.py, names JAX, flax,
+    optax, orbax, tensorstore, zstandard, google_crc32c or the JAX package
+    in an import statement, at any depth (a function's lazy import
+    included): the port reads and writes Orbax checkpoints itself."""
+    import ast
+
+    pkg = os.path.join(REPO, "human_body_proportion_estimation_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
+        if f.endswith(".py")]
+    found = []
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                      for n in names if n.split(".")[0] in _NOT_IMPORTED]
+    assert len(files) > 80
+    assert not found, found
 
 
 _NO_PROTOBUF_IMPORT = r"""

@@ -325,8 +325,8 @@ def test_train_goldens_reproduce(kind):
 def save_pose_init(path, seed=0):
     """JAX's own initial pose state as `cli.certify --seed SEED` draws it
     (`create_train_state(create_hrnet("hrnet_w32"), PRNGKey(seed),
-    (1, 384, 288, 3))`), written as a port training checkpoint, for
-    `scripts/torch_port_pose_spread.py --init-from`."""
+    (1, 384, 288, 3))`), written as an Orbax pose checkpoint (`pose/`
+    under `path`), for `scripts/torch_port_pose_spread.py --init-from`."""
     import jax
 
     from human_body_proportion_estimation_tpu.models.hrnet import (
@@ -334,8 +334,7 @@ def save_pose_init(path, seed=0):
     )
     from human_body_proportion_estimation_tpu.training import trainer as JT
     from human_body_proportion_estimation_tpu_torch.models.weights import (
-        flax_to_state_dict,
-        save_training_checkpoint,
+        save_pose_checkpoint,
     )
 
     state, _ = JT.create_train_state(create_hrnet("hrnet_w32"),
@@ -343,7 +342,7 @@ def save_pose_init(path, seed=0):
                                      (1, 384, 288, 3), 1e-3)
     tree = jax.tree.map(np.asarray, {"params": state.params,
                                      "batch_stats": state.batch_stats})
-    save_training_checkpoint(path, flax_to_state_dict(tree))
+    save_pose_checkpoint(path, tree)
 
 
 if __name__ == "__main__":

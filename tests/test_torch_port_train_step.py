@@ -710,17 +710,22 @@ def test_state_dict_to_flax_inverts_the_converter():
         np.testing.assert_array_equal(a, b)
 
 
-def test_train_pose_loop_trains_and_checkpoints(tmp_path):
+def test_train_pose_loop_trains_and_checkpoints(tmp_path, monkeypatch):
     """`training/loop.train_pose` on two samples: augmented batches from
-    `training/data`, finite losses, and a training checkpoint at every
-    `checkpoint_every` steps and at the end that reloads into the model."""
-    from human_body_proportion_estimation_tpu_torch.models.weights import (
-        load_training_checkpoint,
+    `training/data`, finite losses, and an Orbax checkpoint `step_N/` at
+    every `checkpoint_every` steps and at the end, which JAX's
+    `PyTreeCheckpointer` restores to the port reader's tree and which
+    reloads into the model."""
+    import orbax.checkpoint as ocp
+
+    from human_body_proportion_estimation_tpu_torch.models import (
+        orbax_store,
     )
     from human_body_proportion_estimation_tpu_torch.training import (
         data,
         loop,
     )
+    from tests.torch_port_orbax import assert_bit_equal, block_tensorstore
 
     samples = []
     for sc in JC.make_scenes(2, 3, (192, 160)):
@@ -729,15 +734,19 @@ def test_train_pose_loop_trains_and_checkpoints(tmp_path):
                                        np.array([x1, y1, x2 - x1, y2 - y1],
                                                 np.float32)))
     model = HRNet(HRNetConfig(**POSE), dtype=torch.float32)
+    block_tensorstore(monkeypatch)
     state, losses = loop.train_pose(
         model, samples, steps=3, batch_size=2, crop_hw=CROP_HW,
         checkpoint_dir=str(tmp_path), checkpoint_every=2, log_every=1)
     assert len(losses) == 3 and all(np.isfinite(losses))
     assert state.step == 3
-    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2.npz",
-                                                          "step_3.npz"]
-    tree, step = load_training_checkpoint(str(tmp_path / "step_3.npz"))
-    assert step == 3
-    back = flax_to_state_dict(tree)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2",
+                                                          "step_3"]
+    tree = orbax_store.load_tree(str(tmp_path / "step_3"))
+    ref = ocp.PyTreeCheckpointer().restore(str(tmp_path / "step_3"))
+    assert_bit_equal(tree, jax.tree.map(np.asarray, ref))
+    assert int(tree["step"]) == 3
+    back = flax_to_state_dict({k: tree[k] for k in ("params",
+                                                    "batch_stats")})
     for k, v in model.state_dict().items():
         assert torch.equal(back[k], v.to(back[k].dtype)), k
