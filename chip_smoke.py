@@ -124,6 +124,17 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      both timed, and `--checkpoint-dir` from it serving the compact
      checkpoint's rows; the committed JAX-written Orbax fixture
      (tests/data/torch_port/orbax_jax/) read bit-equal to its .npz twin;
+     `cli.import_weights --efficientdet-ckpt DIR --hrnet-torch PTH` in a
+     subprocess begun at the phase's start, on the certified Lite4 written
+     here as an automl-format TF1 TensorBundle without TensorFlow
+     (tests/torch_port_tfbundle.py: two data shards, every 8th tensor with
+     an ExponentialMovingAverage shadow holding the certified value and
+     its plain name the value + 1.0) and the certified W32 as an official
+     .pth; its checkpoint served by `--checkpoint-dir` (weights real/real,
+     the compact checkpoint's rows at B=16, one launch of each kernel); the
+     reader's MB/s and the CRC32C's GB/s timed in process; the committed
+     TF-written fixtures (tests/data/torch_port/tf_bundles/) read with
+     tensorflow blocked, bit-equal to their .npz twins;
      imgs/s at B=16 beside Lite4.
   D. the other slots and their CLIs (ROADMAP item 12), with the seeded
      weights of tests/data/torch_port/slot_goldens.json made again on the
@@ -2146,6 +2157,54 @@ def check_orbax_fixture() -> int:
     return len(got)
 
 
+def write_automl_inputs(directory, tfbundle):
+    """Phase S step 8's inputs, written without TensorFlow: the certified
+    Lite4 as an automl-format TF1 checkpoint (TF1 names, by
+    tests/torch_port_tfbundle.py, in two data shards; every 8th tensor with
+    an ExponentialMovingAverage shadow that holds the certified value while
+    its plain name holds the value + 1.0, so that an importer that ignores
+    the shadows serves other rows; an int64 global_step) and the certified
+    W32 as an official pose_hrnet .pth. Returns (the checkpoint's
+    directory, the .pth, the name -> array the importer must read, the
+    bundle's write seconds, its MB)."""
+    import numpy as np
+    import torch
+
+    from human_body_proportion_estimation_tpu_torch.models.efficientdet import (  # noqa: E501
+        EFFICIENTDET_LITE4,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.hrnet import (
+        HRNET_W32,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.tf_import import (
+        export_tf_efficientdet,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.weights import (
+        default_certified_checkpoint,
+        export_torch_hrnet,
+        load_compact_checkpoint,
+    )
+
+    det, pose = load_compact_checkpoint(default_certified_checkpoint())
+    arrays = export_tf_efficientdet(det, EFFICIENTDET_LITE4)
+    stored = dict(arrays)
+    for name in sorted(arrays)[::8]:
+        stored[f"{name}/ExponentialMovingAverage"] = arrays[name]
+        stored[name] = arrays[name] + np.float32(1.0)
+    stored["global_step"] = np.int64(300000)
+    edet = os.path.join(directory, "efficientdet-lite4")
+    t0 = time.perf_counter()
+    tfbundle.write_checkpoint(os.path.join(edet, "model.ckpt-300000"),
+                              stored, shards=2)
+    t_write = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(edet, f))
+             for f in os.listdir(edet)) / 1e6
+    pth = os.path.join(directory, "pose_hrnet_w32_384x288.pth")
+    torch.save({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+                export_torch_hrnet(pose, HRNET_W32).items()}, pth)
+    return edet, pth, arrays, t_write, mb
+
+
 def run_ssd(k, dev, lite4_pipe, repo):
     """Phase S: the SSD slot on the card, on seeded weights (the reference's
     ssd.tflite is not in the checkout). Returns the launches of the path's
@@ -2198,6 +2257,18 @@ def run_ssd(k, dev, lite4_pipe, repo):
         [sys.executable, "-m",
          "human_body_proportion_estimation_tpu_torch.serve.server",
          "--port", "0", "--grpc-port", "0"], repo, timeout=300,
+        env=beside_env())
+    # step 8's automl-format inputs, written now, and its import CLI,
+    # begun beside steps 1-7
+    tmp = tempfile.mkdtemp(prefix="phase_s_")
+    edet_dir, pth, tf_arrays, t_tf_write, tf_mb = write_automl_inputs(
+        tmp, load_tests_module("torch_port_tfbundle"))
+    imported = os.path.join(tmp, "imported")
+    import_cli = Started(
+        [sys.executable, "-m",
+         "human_body_proportion_estimation_tpu_torch.cli.import_weights",
+         "--efficientdet-ckpt", edet_dir, "--efficientdet-variant", "lite4",
+         "--hrnet-torch", pth, "--out", imported], repo, timeout=600,
         env=beside_env())
     recipe = load_tests_module("torch_port_ssd")
     tflite = load_tests_module("torch_port_tflite")
@@ -2287,7 +2358,6 @@ def run_ssd(k, dev, lite4_pipe, repo):
     # 3. the SSD slot's serving artifact (pipeline/export.py) at B=16:
     # exported from the f32 pipeline, restored, its rows against the live
     # forward's; one NMS launch and one decode an artifact batch
-    tmp = tempfile.mkdtemp(prefix="phase_s_")
     art = os.path.join(tmp, "ssd_w32_b16")
     t0 = time.perf_counter()
     export_serving_artifact(pipe32, art, batch_size=16)
@@ -2441,7 +2511,65 @@ def run_ssd(k, dev, lite4_pipe, repo):
         "dtype, scalars, inline and indirect values, a multi-chunk leaf "
         "with an absent chunk) equals its .npz twin bit for bit")
 
-    # 8. imgs/s at B=16: the SSD slot (bf16, as the server builds it) and
+    # 8. cli.import_weights without TensorFlow (begun at the phase's
+    # start): the certified Lite4 from the automl-format TensorBundle
+    # directory (two data shards, EMA shadows that must win), the W32 from
+    # its official .pth; the checkpoint it wrote served by serve.server's
+    # pipeline, rows equal to the compact checkpoint's, one launch of each
+    # kernel; the reader and the CRC32C timed in process; then the
+    # committed TF-written fixtures, read bit for bit against their twins
+    from unittest import mock
+
+    from human_body_proportion_estimation_tpu_torch.models.tf_import import (
+        load_tf_checkpoint_arrays,
+    )
+    from human_body_proportion_estimation_tpu_torch.utils.crc32c import (
+        crc32c,
+    )
+
+    t0 = time.perf_counter()
+    got = load_tf_checkpoint_arrays(edet_dir)
+    t_tf_read = time.perf_counter() - t0
+    assert sorted(got) == sorted(tf_arrays), len(got)
+    for name, want in tf_arrays.items():
+        assert got[name].dtype == want.dtype and np.array_equal(
+            got[name], want), name
+    shards = [np.fromfile(os.path.join(edet_dir, f), np.uint8)
+              for f in sorted(os.listdir(edet_dir)) if ".data-" in f]
+    assert len(shards) == 2
+    t0 = time.perf_counter()
+    for blob in shards:
+        crc32c(blob)
+    crc_gbs = sum(b.nbytes for b in shards) / (time.perf_counter() - t0) / 1e9
+    out, err = import_cli.communicate()
+    assert import_cli.returncode == 0, (out[-2000:], err[-4000:])
+    assert (f"imported EfficientDet-lite4 ({len(tf_arrays)} TF tensors)"
+            in out and "imported HRNet" in out), out
+    args = srv.build_parser().parse_args(
+        ["--detector", "efficientdet_lite4", "--checkpoint-dir", imported])
+    ipipe = srv.build_pipeline(args)
+    assert ipipe.weights_origin == {"detector": "real", "pose": "real"}
+    with counted:
+        rows = ipipe.infer_serving(batch16, height, thres)
+    assert counted.last == dict.fromkeys(KERNELS, 1), counted.last
+    np.testing.assert_array_equal(rows, ref)
+    del ipipe
+    with mock.patch.dict(sys.modules, {"tensorflow": None}):
+        fixtures = load_tests_module("torch_port_tf_fixture").check_fixtures()
+    log(f"phase S: automl-format Lite4 TensorBundle ({len(tf_arrays)} "
+        f"tensors + {(len(tf_arrays) + 7) // 8} EMA shadows, 2 data shards, "
+        f"{tf_mb:.1f} MB) written in {t_tf_write:.3f} s; read by "
+        f"load_tf_checkpoint_arrays in {t_tf_read:.3f} s ({tf_mb / t_tf_read:.1f} MB/s, EMA values won); "
+        f"CRC32C (utils/crc32c.cpp) {crc_gbs:.2f} GB/s over its data files; "
+        f"cli.import_weights --efficientdet-ckpt DIR --hrnet-torch PTH "
+        f"{import_cli.wall:.1f} s (begun at the phase's start); served with "
+        f"--checkpoint-dir: weights real/real, rows equal to the compact "
+        f"checkpoint's at B=16, launches {counted.last}; on {card_line()}")
+    log(f"phase S: the committed TF-written fixtures "
+        f"(tests/data/torch_port/tf_bundles/, tensorflow blocked) equal "
+        f"their twins bit for bit: {json.dumps(fixtures)}")
+
+    # 9. imgs/s at B=16: the SSD slot (bf16, as the server builds it) and
     # Lite4, in turns
     pipe16 = InferencePipeline(det_state=state, device=dev,
                                detector="ssd_mobilenet")

@@ -14,8 +14,10 @@ verifiable step:
 
 Sources (any subset; a slot given none keeps flax's init with PRNGKey(0),
 as in JAX, and serves at random with the server's loud warning):
-  --efficientdet-ckpt         automl TF checkpoint prefix (needs TensorFlow)
-  --efficientdet-saved-model  TF SavedModel dir (needs TensorFlow)
+  --efficientdet-ckpt         automl TF checkpoint prefix, or its directory
+  --efficientdet-saved-model  TF SavedModel dir
+  (both read by the port's own TensorBundle reader, `models/tf_bundle`:
+  no TensorFlow)
   --hrnet-torch               official pose_hrnet state_dict (.pth)
   --higherhrnet-torch         official pose_higher_hrnet state_dict (.pth)
   --yolo-torch                ultralytics yolov5 state_dict (.pt); fills

@@ -50,6 +50,8 @@ import numpy as np
 import torch
 
 from human_body_proportion_estimation_tpu_torch.utils import zstd
+# only manifests and nodes carry a CRC32C
+from human_body_proportion_estimation_tpu_torch.utils.crc32c import crc32c
 
 MANIFEST_MAGIC = 0x0CDB3A2A
 NODE_MAGIC = 0x0CDB20DE
@@ -58,30 +60,6 @@ NODE_MAGIC = 0x0CDB20DE
 MAX_INLINE_VALUE_BYTES = 1024
 MAX_DECODED_NODE_BYTES = 100_000_000
 VERSION_TREE_ARITY_LOG2 = 4
-
-
-# --------------------------------------------------------------------- #
-# CRC32C (Castagnoli), table-driven: only manifests and nodes carry one
-
-
-def _crc_table() -> List[int]:
-    table = []
-    for n in range(256):
-        c = n
-        for _ in range(8):
-            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
-        table.append(c)
-    return table
-
-
-_CRC = _crc_table()
-
-
-def crc32c(data) -> int:
-    crc, table = 0xFFFFFFFF, _CRC
-    for b in bytes(data):
-        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
-    return crc ^ 0xFFFFFFFF
 
 
 # --------------------------------------------------------------------- #

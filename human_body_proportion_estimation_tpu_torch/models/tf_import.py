@@ -1,6 +1,6 @@
 """EfficientDet-Lite pretrained-weight importer, TF checkpoint / SavedModel
 -> flax variable tree (port of the JAX package's `models/tf_import.py`;
-numpy only, TensorFlow imported inside the two readers).
+numpy only: the files are read by `models/tf_bundle.py`, no TensorFlow).
 
 The reference's flagship detector is a pretrained EfficientDet-Lite4
 SavedModel served by Triton (the reference's `models/conv.py:15-18`;
@@ -38,6 +38,7 @@ from typing import Any, Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from human_body_proportion_estimation_tpu_torch.models import tf_bundle
 from human_body_proportion_estimation_tpu_torch.models.efficientdet import (
     EFFICIENTDET_LITE4,
     EfficientDetConfig,
@@ -208,38 +209,33 @@ _SKIP_SUBSTRINGS = ("Momentum", "RMSProp", "ExponentialMovingAverage",
 
 def load_tf_checkpoint_arrays(path: str, prefer_ema: bool = True
                               ) -> Dict[str, np.ndarray]:
-    """Read every model variable of a TF checkpoint as numpy.
+    """Read every model variable of a TF checkpoint as numpy (`path`: a
+    prefix, or a directory with a `checkpoint` file, as
+    `tf.train.load_checkpoint` takes it; read by `models/tf_bundle`).
 
     automl training checkpoints carry ExponentialMovingAverage shadows;
     eval/serving uses the EMA values, so with `prefer_ema` a variable whose
     `<name>/ExponentialMovingAverage` twin exists reads the EMA tensor.
     """
-    import tensorflow as tf
-
-    reader = tf.train.load_checkpoint(path)
-    shape_map = reader.get_variable_to_shape_map()
-    out: Dict[str, np.ndarray] = {}
-    for name in shape_map:
+    bundle = tf_bundle.open_checkpoint(path)
+    sources = {}
+    for name in bundle.entries:
         if any(s in name for s in _SKIP_SUBSTRINGS):
             continue
         src = name
-        if prefer_ema and f"{name}/ExponentialMovingAverage" in shape_map:
+        if prefer_ema and f"{name}/ExponentialMovingAverage" in bundle.entries:
             src = f"{name}/ExponentialMovingAverage"
-        out[name] = np.asarray(reader.get_tensor(src))
-    return out
+        sources[name] = src
+    values = bundle.read(set(sources.values()))
+    return {name: np.asarray(values[src]) for name, src in sources.items()}
 
 
 def load_saved_model_arrays(export_dir: str) -> Dict[str, np.ndarray]:
     """Read variables of a TF SavedModel (the format the reference actually
-    serves, `models/conv.py:15`) as {tf1-style name: numpy}."""
-    import tensorflow as tf
-
-    loaded = tf.saved_model.load(export_dir)
-    out: Dict[str, np.ndarray] = {}
-    for v in loaded.variables:
-        name = v.name.split(":")[0]
-        out[name] = v.numpy()
-    return out
+    serves, `models/conv.py:15`) as {tf1-style name: numpy}: those of
+    `tf.saved_model.load(export_dir).variables`
+    (`tf_bundle.saved_model_variables`)."""
+    return dict(tf_bundle.saved_model_variables(export_dir))
 
 
 # --------------------------------------------------------------------- #

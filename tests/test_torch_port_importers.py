@@ -8,16 +8,19 @@ on the CPU, with synthetic inputs as the JAX tests have:
   imported weights computes the official torch graph's heatmaps;
 - `models/tf_import.py`: a TF1 checkpoint written from an EfficientDet-
   Lite0 init (with an ExponentialMovingAverage shadow, which wins) reads
-  and imports to the tree JAX's importer gives, exactly;
+  (TensorFlow blocked from the port: its own TensorBundle reader) and
+  imports to the tree JAX's importer gives, exactly;
 - Orbax checkpoints (the port's own store, tensorstore kept from it):
   the port reads what JAX's `save_pipeline_checkpoint` /
   `save_pose_checkpoint` write, and JAX reads what the port's write, leaf
   for leaf;
 - `cli/import_weights`: the JAX CLI's flags; a Lite0 TF checkpoint and an
-  HRNet .pth go into a checkpoint directory that JAX's loader reads with
+  HRNet .pth (TensorFlow blocked) go into a checkpoint directory that JAX's loader reads with
   the source tensors in place and `cli.common.build_pipeline` serves
   (`--checkpoint-dir`, labelled "real").
 """
+
+import sys
 
 import numpy as np
 import pytest
@@ -160,10 +163,16 @@ def lite0_ckpt(tmp_path_factory):
     return prefix, arrays, tree
 
 
-def test_tf_import_matches_jax(lite0_ckpt):
+def block_tensorflow(monkeypatch):
+    """The port may not import TensorFlow from here on."""
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
+
+
+def test_tf_import_matches_jax(lite0_ckpt, monkeypatch):
     prefix, arrays, tree = lite0_ckpt
-    got_arrays = ttf.load_tf_checkpoint_arrays(prefix)
     ref_arrays = jtf.load_tf_checkpoint_arrays(prefix)
+    block_tensorflow(monkeypatch)
+    got_arrays = ttf.load_tf_checkpoint_arrays(prefix)
     assert sorted(got_arrays) == sorted(ref_arrays) == sorted(arrays)
     for key in arrays:
         np.testing.assert_array_equal(got_arrays[key], arrays[key])
@@ -241,6 +250,7 @@ def test_import_weights_cli_edet_and_hrnet(lite0_ckpt, tmp_path,
     pth = tmp_path / "pose_hrnet_w32.pth"
     torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, str(pth))
     out = tmp_path / "ckpt"
+    block_tensorflow(monkeypatch)
     tcli.main(["--efficientdet-ckpt", prefix, "--efficientdet-variant",
                "lite0", "--hrnet-torch", str(pth), "--out", str(out)])
 

@@ -1,7 +1,6 @@
 """Package-level guarantees of the port: it imports without JAX, flax, optax,
-orbax, tensorstore, zstandard, google_crc32c or the JAX package (and
-without importing TensorFlow, which only the TF weight reader loads when
-called), no source file of it names those packages in an import, and its
+orbax, tensorstore, zstandard, google_crc32c, TensorFlow or the JAX
+package, no source file of it names those packages in an import, and its
 HTTP edge and registry without grpc or protobuf; the
 committed certified checkpoint converts into the
 full-width port models with every tensor placed; entry points default to
@@ -20,14 +19,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 for blocked in ("jax", "flax", "optax", "orbax", "orbax.checkpoint",
-                "tensorstore", "zstandard", "google_crc32c",
+                "tensorstore", "zstandard", "google_crc32c", "tensorflow",
                 "human_body_proportion_estimation_tpu"):
     sys.modules[blocked] = None
 import human_body_proportion_estimation_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 67, names
+assert len(names) >= 69, names
 for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "serve.hbpe_pb2", "serve.kserve_pb2", "serve.wire",
              "serve.client", "serve.perf", "models.higherhrnet",
@@ -43,23 +42,21 @@ for name in ("serve.registry", "serve.grpc_server", "serve.kserve_grpc",
              "parallel.mesh", "parallel.multihost", "training.sharded",
              "models.ssd_mobilenet", "models.tflite_import",
              "models.tf_import", "pipeline.human_detector",
-             "cli.import_weights", "models.orbax_store", "utils.zstd"):
+             "cli.import_weights", "models.orbax_store", "utils.zstd",
+             "models.tf_bundle", "utils.crc32c"):
     assert port.__name__ + "." + name in names, name
 import chip_smoke
 assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax",
                                                    "orbax"))
             and sys.modules[m] is not None]
-# the reader of TensorFlow's format imports it when called
-assert not [m for m in sys.modules if m.split(".")[0] == "tensorflow"], \
-    "tensorflow imported"
 print("ok", len(names))
 """
 
 
 def test_port_imports_without_jax():
     """In a fresh interpreter with jax, flax, orbax, tensorstore, zstandard,
-    google_crc32c and the JAX package blocked, every module of the port
-    and chip_smoke.py import."""
+    google_crc32c, tensorflow and the JAX package blocked, every module of
+    the port and chip_smoke.py import."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO,
         capture_output=True, text=True, timeout=120,
@@ -69,15 +66,16 @@ def test_port_imports_without_jax():
 
 
 _NOT_IMPORTED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-                 "zstandard", "google_crc32c",
+                 "zstandard", "google_crc32c", "tensorflow",
                  "human_body_proportion_estimation_tpu")
 
 
 def test_no_source_file_imports_jax_or_orbax_packages():
     """No source file of the port, nor chip_smoke.py, names JAX, flax,
-    optax, orbax, tensorstore, zstandard, google_crc32c or the JAX package
-    in an import statement, at any depth (a function's lazy import
-    included): the port reads and writes Orbax checkpoints itself."""
+    optax, orbax, tensorstore, zstandard, google_crc32c, TensorFlow or the
+    JAX package in an import statement, at any depth (a function's lazy
+    import included): the port reads and writes Orbax checkpoints and
+    reads TF checkpoints itself."""
     import ast
 
     pkg = os.path.join(REPO, "human_body_proportion_estimation_tpu_torch")
