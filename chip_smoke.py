@@ -133,8 +133,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
      .pth; its checkpoint served by `--checkpoint-dir` (weights real/real,
      the compact checkpoint's rows at B=16, one launch of each kernel); the
      reader's MB/s and the CRC32C's GB/s timed in process; the committed
-     TF-written fixtures (tests/data/torch_port/tf_bundles/) read with
-     tensorflow blocked, bit-equal to their .npz twins;
+     TF-written fixtures (tests/data/torch_port/tf_bundles/, a TF1
+     SavedModel among them) read with tensorflow blocked, bit-equal to
+     their .npz twins; `cli.import_weights --efficientdet-saved-model DIR
+     --hrnet-torch PTH` in a second subprocess begun at the phase's start,
+     on the certified Lite4 written here as a TF1 SavedModel without
+     TensorFlow (tests/torch_port_tfbundle.py: 1 062 resource variables
+     under automl names, a sharded saver's restore graph over two data
+     files, a local variable that a Fill sets), its checkpoint served the
+     same way (the compact checkpoint's rows, one launch of each kernel);
+     the .pb's parse and the reader's MB/s timed in process;
      imgs/s at B=16 beside Lite4.
   D. the other slots and their CLIs (ROADMAP item 12), with the seeded
      weights of tests/data/torch_port/slot_goldens.json made again on the
@@ -2205,6 +2213,29 @@ def write_automl_inputs(directory, tfbundle):
     return edet, pth, arrays, t_write, mb
 
 
+def write_tf1_export(directory, arrays, tfbundle):
+    """Phase S step 9's input, written without TensorFlow: the certified
+    Lite4 (`arrays`, automl names) as a TF1 SavedModel by
+    tests/torch_port_tfbundle.py (a resource variable each, unevaluated
+    TruncatedNormal initializers, a sharded saver's restore graph with two
+    RestoreV2s over two data files) with a local variable that a Fill
+    sets. Returns (its directory, name -> value of every variable in
+    `.variables` order, the write seconds, its MB)."""
+    import numpy as np
+
+    local = {"eval/num_images": ((16, 4), np.float32(0.0))}
+    sm_dir = os.path.join(directory, "saved_model")
+    t0 = time.perf_counter()
+    tfbundle.write_tf1_saved_model(sm_dir, arrays, local, shards=2)
+    t_write = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(d, f))
+             for d, _, fs in os.walk(sm_dir) for f in fs) / 1e6
+    want = {name: arrays[name] for name in sorted(arrays, key=str.encode)}
+    want.update({name: np.full(shape, fill) for name, (shape, fill)
+                 in local.items()})
+    return sm_dir, want, t_write, mb
+
+
 def run_ssd(k, dev, lite4_pipe, repo):
     """Phase S: the SSD slot on the card, on seeded weights (the reference's
     ssd.tflite is not in the checkout). Returns the launches of the path's
@@ -2270,6 +2301,17 @@ def run_ssd(k, dev, lite4_pipe, repo):
          "--efficientdet-ckpt", edet_dir, "--efficientdet-variant", "lite4",
          "--hrnet-torch", pth, "--out", imported], repo, timeout=600,
         env=beside_env())
+    # step 9's TF1 SavedModel of the same Lite4, written now, and its
+    # import CLI, begun beside steps 1-8
+    sm_dir, sm_want, t_sm_write, sm_mb = write_tf1_export(
+        tmp, tf_arrays, load_tests_module("torch_port_tfbundle"))
+    imported_sm = os.path.join(tmp, "imported_sm")
+    import_sm_cli = Started(
+        [sys.executable, "-m",
+         "human_body_proportion_estimation_tpu_torch.cli.import_weights",
+         "--efficientdet-saved-model", sm_dir, "--efficientdet-variant",
+         "lite4", "--hrnet-torch", pth, "--out", imported_sm], repo,
+        timeout=600, env=beside_env())
     recipe = load_tests_module("torch_port_ssd")
     tflite = load_tests_module("torch_port_tflite")
     with open(os.path.join(DATA, "ssd_goldens.json")) as fh:
@@ -2569,7 +2611,59 @@ def run_ssd(k, dev, lite4_pipe, repo):
         f"(tests/data/torch_port/tf_bundles/, tensorflow blocked) equal "
         f"their twins bit for bit: {json.dumps(fixtures)}")
 
-    # 9. imgs/s at B=16: the SSD slot (bf16, as the server builds it) and
+    # 9. cli.import_weights --efficientdet-saved-model without TensorFlow
+    # (begun at the phase's start): the certified Lite4 from its TF1
+    # SavedModel (variables restored through the saver's graph, the local
+    # one through its Fill), the W32 from its .pth; the checkpoint served
+    # as in step 8; the .pb's parse and the whole read timed in process
+    from human_body_proportion_estimation_tpu_torch.models import (
+        tf_bundle,
+        tf_graph,
+    )
+    from human_body_proportion_estimation_tpu_torch.models.tf_import import (
+        load_saved_model_arrays,
+    )
+
+    t0 = time.perf_counter()
+    pb, meta = tf_bundle.meta_graph(sm_dir)
+    n_nodes = len(tf_graph.read_graph(meta[2][0], pb))
+    t_parse = time.perf_counter() - t0
+    pb_mb = os.path.getsize(pb) / 1e6
+    t0 = time.perf_counter()
+    got = load_saved_model_arrays(sm_dir)
+    t_sm_read = time.perf_counter() - t0
+    assert list(got) == list(sm_want), len(got)
+    for name, want in sm_want.items():
+        assert (got[name].dtype, got[name].shape) == (
+            want.dtype, want.shape) and got[name].tobytes() == \
+            want.tobytes(), name
+    out, err = import_sm_cli.communicate()
+    assert import_sm_cli.returncode == 0, (out[-2000:], err[-4000:])
+    assert (f"imported EfficientDet-lite4 ({len(sm_want)} TF tensors)"
+            in out and "imported HRNet" in out), out
+    args = srv.build_parser().parse_args(
+        ["--detector", "efficientdet_lite4", "--checkpoint-dir",
+         imported_sm])
+    spipe = srv.build_pipeline(args)
+    assert spipe.weights_origin == {"detector": "real", "pose": "real"}
+    with counted:
+        rows = spipe.infer_serving(batch16, height, thres)
+    assert counted.last == dict.fromkeys(KERNELS, 1), counted.last
+    np.testing.assert_array_equal(rows, ref)
+    del spipe
+    log(f"phase S: TF1 SavedModel of the Lite4 ({len(sm_want)} resource "
+        f"variables, {n_nodes} graph nodes, saved_model.pb {pb_mb:.2f} MB, "
+        f"{sm_mb:.1f} MB in all, 2 data files) written without TensorFlow "
+        f"in {t_sm_write:.3f} s; saved_model.pb parsed in {t_parse:.3f} s; "
+        f"read by load_saved_model_arrays in {t_sm_read:.3f} s "
+        f"({sm_mb / t_sm_read:.1f} MB/s, parse included); "
+        f"cli.import_weights --efficientdet-saved-model DIR --hrnet-torch "
+        f"PTH {import_sm_cli.wall:.1f} s (begun at the phase's start); "
+        f"served with --checkpoint-dir: weights real/real, rows equal to "
+        f"the compact checkpoint's at B=16, launches {counted.last}; on "
+        f"{card_line()}")
+
+    # 10. imgs/s at B=16: the SSD slot (bf16, as the server builds it) and
     # Lite4, in turns
     pipe16 = InferencePipeline(det_state=state, device=dev,
                                detector="ssd_mobilenet")

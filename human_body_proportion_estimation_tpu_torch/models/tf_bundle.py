@@ -1,6 +1,6 @@
 """TensorFlow checkpoints (the TensorBundle format) and the variables of a
-TF2 SavedModel, read with numpy and `struct`: no TensorFlow, no protobuf
-package.
+SavedModel (TF2 here, TF1 through `models/tf_graph.py`), read with numpy
+and `struct`: no TensorFlow, no protobuf package.
 
 A checkpoint `<prefix>` is an index `<prefix>.index` and data files
 `<prefix>.data-%05d-of-%05d`.
@@ -475,13 +475,10 @@ def _children(node: Dict[int, List], what: str) -> List[Tuple[str, int]]:
     return out
 
 
-def saved_model_variables(export_dir: str) -> List[Tuple[str, object]]:
-    """(name, value) of each variable in `tf.saved_model.load(export_dir).
-    variables`, in order: the root object's tracked child `variables` (a
-    list), each named by its `SavedVariable.name` (the part before a ':')
-    and read from `variables/variables` through the checkpoint key that the
-    bundle's object graph gives the same node id. A SavedModel without an
-    object graph (a TF1 export) raises, naming that format."""
+def meta_graph(export_dir: str) -> Tuple[str, Dict[int, List]]:
+    """(the path of `export_dir`'s saved_model.pb, its one MetaGraphDef
+    parsed: field number -> values). Several MetaGraphs raise, as
+    `tf.saved_model.load` without tags does."""
     pb = os.path.join(export_dir, "saved_model.pb")
     if not os.path.isfile(pb):
         raise FileNotFoundError(f"no SavedModel at {export_dir} (no "
@@ -492,10 +489,26 @@ def saved_model_variables(export_dir: str) -> List[Tuple[str, object]]:
     if len(metas) != 1:
         raise ValueError(f"{pb}: {len(metas)} MetaGraphs; one is read (as "
                          "tf.saved_model.load without tags)")
-    meta = _message(metas[0], f"{pb}: MetaGraphDef")
+    return pb, _message(metas[0], f"{pb}: MetaGraphDef")
+
+
+def saved_model_variables(export_dir: str) -> List[Tuple[str, object]]:
+    """(name, value) of each variable in `tf.saved_model.load(export_dir).
+    variables`, in order. A TF2 SavedModel (one with an object graph): the
+    root object's tracked child `variables` (a list), each named by its
+    `SavedVariable.name` (the part before a ':') and read from
+    `variables/variables` through the checkpoint key that the bundle's
+    object graph gives the same node id. A TF1 SavedModel (a graph-mode
+    export, no object graph): its resource variables, restored through its
+    saver's graph and its init op (`tf_graph.variables`). Several
+    MetaGraphs raise, as `tf.saved_model.load` without tags does."""
+    pb, meta = meta_graph(export_dir)
     if 7 not in meta:
-        raise ValueError(f"{pb}: a TF1 SavedModel (no object graph), whose "
-                         "variables are not read")
+        from human_body_proportion_estimation_tpu_torch.models import (
+            tf_graph,
+        )
+
+        return tf_graph.variables(export_dir, meta, pb)
     nodes = [_message(n, f"{pb}: SavedObject")
              for n in _message(_one(meta, 7), f"{pb}: object graph").get(
                  1, [])]

@@ -234,7 +234,9 @@ def load_saved_model_arrays(export_dir: str) -> Dict[str, np.ndarray]:
     """Read variables of a TF SavedModel (the format the reference actually
     serves, `models/conv.py:15`) as {tf1-style name: numpy}: those of
     `tf.saved_model.load(export_dir).variables`
-    (`tf_bundle.saved_model_variables`)."""
+    (`tf_bundle.saved_model_variables`), for a TF2 SavedModel and for a
+    TF1 (graph-mode) export alike. A TF1 export's ref variables are not
+    among them, as in TensorFlow."""
     return dict(tf_bundle.saved_model_variables(export_dir))
 
 

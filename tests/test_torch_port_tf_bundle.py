@@ -13,8 +13,11 @@ written by TensorFlow here; the port then runs with TensorFlow blocked.
 - the committed fixtures (tests/data/torch_port/tf_bundles/) against their
   twins;
 - refusals: a flipped data byte, a flipped block byte, compression,
-  a slice that is absent, a big-endian header, an unknown dtype, a TF1
-  SavedModel, absent paths;
+  a slice that is absent, a big-endian header, an unknown dtype, absent
+  paths; TF1 SavedModels that are not read (a local variable with a
+  random initializer, several MetaGraphs, a global variable the saver
+  does not restore, a partitioned variable without a SaverDef; the TF1
+  SavedModels that are read: test_torch_port_tf1_saved_model.py);
 - the CRC32C against a Python table and TensorFlow's stored values;
 - the test writer (tests/torch_port_tfbundle.py) against TensorFlow.
 """
@@ -122,7 +125,7 @@ def test_reader_matches_tensorflow_and_jax(written, case, monkeypatch):
 
 def test_committed_fixtures_match_their_twins(monkeypatch):
     for case, where in fixture.CASES.items():
-        if case == "saved_model":
+        if case in fixture.SAVED_MODELS:
             continue
         twin = np.load(os.path.join(fixture.FIXTURES, f"{case}.npz"))
         for k, v in fixture.tf_reader_tensors(
@@ -130,7 +133,8 @@ def test_committed_fixtures_match_their_twins(monkeypatch):
             assert np.asarray(v).tobytes() == twin[f"tensor/{k}"].tobytes()
     block_tensorflow(monkeypatch)
     assert fixture.check_fixtures() == {"tf1": 26, "tf2_sharded": 10,
-                                        "saved_model": 2}
+                                        "saved_model": 2,
+                                        "tf1_saved_model": 6}
 
 
 def _copy_tf1(tmp_path):
@@ -219,22 +223,64 @@ def test_refusals_name_what_is_wrong(kind, tmp_path, monkeypatch):
         call()
 
 
-def test_tf1_saved_model_is_refused_naming_the_format(tmp_path,
-                                                      monkeypatch):
+def _tf1_export(directory, kind):
+    """A TF1 SavedModel that the port refuses, as `kind` says; returns a
+    pattern the refusal's message matches."""
     tf1 = tf.compat.v1
     graph = tf1.Graph()
     with graph.as_default():
         a = tf1.get_variable("net/a", initializer=tf.constant([1.0, 2.0]))
-        x = tf1.placeholder(tf.float32, [None, 2])
+        if kind == "random_local":
+            tf1.get_variable("metric/r", shape=(3,),
+                             initializer=tf1.random_uniform_initializer(),
+                             collections=[tf1.GraphKeys.LOCAL_VARIABLES])
+        if kind in ("unrestored", "no_saver_partitioned"):
+            tf1.get_variable("net/b", initializer=tf.constant([3.0]))
+        if kind == "no_saver_partitioned":
+            tf1.get_variable("net/p", shape=(4, 2),
+                             partitioner=tf1.fixed_size_partitioner(2))
         with tf1.Session(graph=graph) as sess:
             sess.run(tf1.global_variables_initializer())
-            tf1.saved_model.simple_save(sess, str(tmp_path / "v1"), {"x": x},
-                                        {"y": x * a})
-    assert [k for k, _ in tf_saved_model_variables(str(tmp_path / "v1"))] \
-        == ["net/a"]
+            builder = tf1.saved_model.Builder(directory)
+            saver = (tf1.train.Saver([a]) if kind == "unrestored" else None)
+            builder.add_meta_graph_and_variables(sess, ["serve"],
+                                                 saver=saver)
+            if kind == "several_metagraphs":
+                builder.add_meta_graph(["eval"])
+            builder.save()
+    if kind == "no_saver_partitioned":
+        from tests.test_torch_port_tf1_saved_model import drop_saver_def
+
+        drop_saver_def(directory)
+    return {"random_local": "'metric/r' is computed by .* "
+                            "'metric/r/Initializer/random_uniform'",
+            "several_metagraphs": "2 MetaGraphs",
+            "unrestored": "the global variable 'net/b' has no value: the "
+                          "saver does not restore it",
+            "no_saver_partitioned": "the partitioned variable "
+                                    "'net/p/part_0' is not read"}[kind]
+
+
+@pytest.mark.parametrize("kind", ["random_local", "several_metagraphs",
+                                  "unrestored", "no_saver_partitioned"])
+def test_tf1_saved_model_is_refused_naming_the_format(kind, tmp_path,
+                                                      monkeypatch):
+    directory = str(tmp_path / "v1")
+    pattern = _tf1_export(directory, kind)
+    if kind == "random_local":
+        # TensorFlow runs the draw; the port does not imitate it
+        assert [k for k, _ in tf_saved_model_variables(directory)] == [
+            "net/a", "metric/r"]
+    elif kind == "unrestored":
+        # TensorFlow leaves net/b uninitialized: it reads as an empty array
+        got = dict(tf_saved_model_variables(directory))
+        assert got["net/b"].shape == (0,) and got["net/a"].shape == (2,)
+    else:
+        with pytest.raises((ValueError, TypeError, tf.errors.OpError)):
+            tf_saved_model_variables(directory)
     block_tensorflow(monkeypatch)
-    with pytest.raises(ValueError, match="a TF1 SavedModel"):
-        ttf.load_saved_model_arrays(str(tmp_path / "v1"))
+    with pytest.raises(ValueError, match=pattern):
+        ttf.load_saved_model_arrays(directory)
 
 
 def _crc_table():

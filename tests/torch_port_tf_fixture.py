@@ -4,7 +4,7 @@ readers (on the CPU):
 
     JAX_PLATFORMS=cpu python -m tests.torch_port_tf_fixture
 
-Three cases, each a directory and a twin `<case>.npz`:
+Four cases, each a directory and a twin `<case>.npz`:
 
 - `tf1/`: a `tf.compat.v1.train.Saver` checkpoint (relative paths in its
   `checkpoint` file, so the directory resolves wherever it lies):
@@ -17,20 +17,28 @@ Three cases, each a directory and a twin `<case>.npz`:
   across them, the object graph a 0-d string);
 - `saved_model/`: a TF2 SavedModel whose root lists two of its three
   variables as `variables` (the third is left out, as
-  `tf.saved_model.load(...).variables` leaves it).
+  `tf.saved_model.load(...).variables` leaves it);
+- `tf1_saved_model/`: a TF1 SavedModel (graph mode, written by
+  `tf.compat.v1.saved_model.Builder` with its sharded saver): a resource
+  variable with an ExponentialMovingAverage shadow, a ref variable (left
+  out of `.variables`), a variable partitioned in two, `global_step` and a
+  local variable that a Const initializes.
 
 `check_fixtures` holds what the port reads against the twins (the CPU
 tests and `chip_smoke.py` call it). A checkpoint's twin holds
 `tensor/<key>`, what `tf.train.load_checkpoint` gives for each key, and
 `arrays/<name>`, what the JAX package's
 `load_tf_checkpoint_arrays` gives; the SavedModel's twin holds `arrays/
-<name>` of the JAX package's `load_saved_model_arrays`. The card has no
+<name>` of the JAX package's `load_saved_model_arrays` (so does the TF1
+one). `python -m tests.torch_port_tf_fixture CASE...` writes only those
+cases again. The card has no
 TensorFlow: there, these files show that the port reads what TensorFlow
 writes.
 """
 
 import os
 import shutil
+import sys
 
 import numpy as np
 
@@ -40,7 +48,8 @@ FIXTURES = os.path.join(HERE, "data", "torch_port", "tf_bundles")
 # case as its directory, the TF2 one (`Checkpoint.write` writes no
 # `checkpoint` file) as its prefix
 CASES = {"tf1": "tf1", "tf2_sharded": "tf2_sharded/ckpt",
-         "saved_model": "saved_model"}
+         "saved_model": "saved_model", "tf1_saved_model": "tf1_saved_model"}
+SAVED_MODELS = ("saved_model", "tf1_saved_model")
 
 
 def tf1_values(seed: int = 0):
@@ -122,6 +131,41 @@ def write_saved_model(directory: str, seed: int = 0) -> str:
     return directory
 
 
+def write_graph_mode_saved_model(directory: str, seed: int = 0) -> str:
+    """The TF1 SavedModel case at `directory`."""
+    import tensorflow as tf
+
+    tf1 = tf.compat.v1
+    rng = np.random.default_rng(seed)
+    graph = tf1.Graph()
+    with graph.as_default():
+        w = tf1.get_variable("net/conv/kernel", initializer=tf.constant(
+            rng.normal(size=(3, 3, 2, 4)).astype(np.float32)))
+        tf1.get_variable("net/ref_bias", use_resource=False,
+                         initializer=tf.constant(rng.normal(size=4).astype(
+                             np.float32)))
+        part = tf1.get_variable(
+            "net/part", shape=(5, 2), dtype=tf.float32,
+            partitioner=tf1.fixed_size_partitioner(2))
+        step = tf1.train.get_or_create_global_step()
+        ema = tf1.train.ExponentialMovingAverage(0.5)
+        update = ema.apply([w])
+        tf1.get_variable("metric/count", initializer=tf.constant(
+            [3, -4, 5], tf.int32), collections=[tf1.GraphKeys.LOCAL_VARIABLES])
+        with tf1.Session(graph=graph) as sess:
+            sess.run(tf1.global_variables_initializer())
+            for p in part:
+                sess.run(p.assign(rng.normal(size=p.shape).astype(
+                    np.float32)))
+            sess.run(update)
+            sess.run(w.assign(w + 1.0))
+            sess.run(step.assign(1234))
+            builder = tf1.saved_model.Builder(directory)
+            builder.add_meta_graph_and_variables(sess, ["serve"])
+            builder.save()
+    return directory
+
+
 def tf_reader_tensors(path: str):
     """key -> what TensorFlow's checkpoint reader gives for it."""
     import tensorflow as tf
@@ -139,7 +183,7 @@ def port_read(path: str, case: str):
         tf_import,
     )
 
-    if case == "saved_model":
+    if case in SAVED_MODELS:
         arrays = tf_import.load_saved_model_arrays(path)
         return {f"arrays/{k}": v for k, v in arrays.items()}
     got = {f"tensor/{k}": v
@@ -166,18 +210,23 @@ def check_fixtures(directory: str = FIXTURES) -> dict:
     return counts
 
 
-def generate():
+WRITERS = {"tf1": write_tf1, "tf2_sharded": write_tf2_sharded,
+           "saved_model": write_saved_model,
+           "tf1_saved_model": write_graph_mode_saved_model}
+
+
+def generate(cases=tuple(CASES)):
+    """Write `cases` (each directory and twin anew) with TensorFlow."""
     from human_body_proportion_estimation_tpu.models import tf_import as jtf
 
-    shutil.rmtree(FIXTURES, ignore_errors=True)
-    os.makedirs(FIXTURES)
-    write_tf1(os.path.join(FIXTURES, "tf1"))
-    write_tf2_sharded(os.path.join(FIXTURES, "tf2_sharded"))
-    write_saved_model(os.path.join(FIXTURES, "saved_model"))
-    for case, where in CASES.items():
-        path = os.path.join(FIXTURES, where)
+    os.makedirs(FIXTURES, exist_ok=True)
+    for case in cases:
+        where = CASES[case].split("/")[0]
+        shutil.rmtree(os.path.join(FIXTURES, where), ignore_errors=True)
+        WRITERS[case](os.path.join(FIXTURES, where))
+        path = os.path.join(FIXTURES, CASES[case])
         twin = {}
-        if case == "saved_model":
+        if case in SAVED_MODELS:
             arrays = jtf.load_saved_model_arrays(path)
         else:
             twin.update({f"tensor/{k}": np.asarray(v)
@@ -185,12 +234,12 @@ def generate():
             arrays = jtf.load_tf_checkpoint_arrays(path)
         twin.update({f"arrays/{k}": np.asarray(v) for k, v in arrays.items()})
         np.savez(os.path.join(FIXTURES, f"{case}.npz"), **twin)
-    shutil.rmtree(os.path.join(FIXTURES, "saved_model", "assets"),
-                  ignore_errors=True)
+        shutil.rmtree(os.path.join(FIXTURES, where, "assets"),
+                      ignore_errors=True)
     size = sum(os.path.getsize(os.path.join(d, f))
                for d, _, fs in os.walk(FIXTURES) for f in fs)
-    print(f"wrote {FIXTURES} ({size} bytes)")
+    print(f"wrote {', '.join(cases)} in {FIXTURES} ({size} bytes)")
 
 
 if __name__ == "__main__":
-    generate()
+    generate(tuple(sys.argv[1:]) or tuple(CASES))
