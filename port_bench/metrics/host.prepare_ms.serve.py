@@ -1,0 +1,13 @@
+"""host.prepare_ms.serve: host milliseconds a forward spends before the
+device computes, in the open-loop cells: the pipeline's `host_prepare`
+(resize, pad to the bucket) plus `device_upload` (copies to the card
+until they have finished), means over the window (`StageTimer`)."""
+
+
+def read(run):
+    if run.mix["loop"] != "open":
+        return None
+    st = run.stages
+    if "host_prepare" not in st or "device_upload" not in st:
+        return None
+    return st["host_prepare"]["mean_ms"] + st["device_upload"]["mean_ms"]
