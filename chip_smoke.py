@@ -1068,7 +1068,8 @@ def load_summary(m0, m1, wall, requests):
         latency_ms_p95=m1["latency_ms_p95"],
         queue_wait_ms_p95=m1["queue_wait_ms_p95"],
         stages_mean_ms={key: v["mean_ms"]
-                        for key, v in m1["stages"].items()},
+                        for key, v in m1["stages"].items()
+                        if "mean_ms" in v},   # not the row counters
     )
 
 

@@ -13,7 +13,7 @@ no detector, no per-person crops. The input size is the reference's fixed
 HigherHRNet evaluation: the 1/4-res "output_1" heatmaps are upsampled
 bilinearly to 1/2 res and averaged with "output_2"; the tags are
 upsampled alongside. The whole forward stays on the device; the stages
-are `record_function` ranges (`hbpe.bottomup_model`,
+are profiler spans (`utils.profiling.span`: `hbpe.bottomup_model`,
 `hbpe.bottomup_decode`) that `chip_smoke.py --profile` reads.
 
 It launches none of the port's CUDA kernels: the JAX bottom-up program
@@ -27,13 +27,11 @@ upsample are plain PyTorch here as they are plain XLA there.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Mapping, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from human_body_proportion_estimation_tpu_torch.models.higherhrnet import (
     HigherHRNet,
@@ -66,6 +64,10 @@ from human_body_proportion_estimation_tpu_torch.utils.config import (
 )
 from human_body_proportion_estimation_tpu_torch.utils.logging import (
     get_logger,
+)
+from human_body_proportion_estimation_tpu_torch.utils.profiling import (
+    span,
+    stage_of,
 )
 
 
@@ -223,9 +225,9 @@ class BottomUpPipeline:
                 model=None) -> BottomUpOutputs:
         """`forward` without `torch.inference_mode` (`BottomUpProgram`),
         on `model` (the pipeline's by default)."""
-        with record_function("hbpe.bottomup_model"):
+        with span("bottomup_model"):
             heat, tags = self.aggregate(images, model)
-        with record_function("hbpe.bottomup_decode"):
+        with span("bottomup_decode"):
             return self.decode(heat, tags, person_heights, orig_hw)
 
     def decode(self, heat, tags, person_heights, orig_hw) -> BottomUpOutputs:
@@ -289,9 +291,7 @@ class BottomUpPipeline:
                             out.seg_visible)
 
     def _stage(self, name: str):
-        if self.stages is None:
-            return contextlib.nullcontext()
-        return self.stages.stage(name)
+        return stage_of(self.stages, name)
 
     def _upload(self, arrays) -> list:
         """Host arrays -> [per shard: the arrays' rows on its device]."""

@@ -28,7 +28,6 @@ the other's artifact.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
@@ -50,6 +49,9 @@ from human_body_proportion_estimation_tpu_torch.pipeline import (
 )
 from human_body_proportion_estimation_tpu_torch.utils.config import (
     config_from_dict,
+)
+from human_body_proportion_estimation_tpu_torch.utils.profiling import (
+    stage_of,
 )
 
 # artifact directory layout version; bump on layout/meta schema breaks.
@@ -240,7 +242,7 @@ class ArtifactPipeline:
     oversize batches cut into chunks) to it, unlike the live pipeline's
     power-of-two buckets. Its stages are `host_prepare` and
     `device_compute_readback` (the upload is part of the latter): the
-    live forward's `record_function` ranges are not part of an exported
+    live forward's `hbpe.*` spans are not part of an exported
     graph. `mesh`: data-parallel serving (`ServingArtifact`): a chunk is
     then `batch_size` x dp rows.
     """
@@ -266,9 +268,7 @@ class ArtifactPipeline:
         self.prewarmed = False
 
     def _stage(self, name: str):
-        if self.stages is None:
-            return contextlib.nullcontext()
-        return self.stages.stage(name)
+        return stage_of(self.stages, name)
 
     def infer_serving(
         self,

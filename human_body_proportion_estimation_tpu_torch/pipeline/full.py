@@ -8,15 +8,16 @@
 Fixed shapes throughout: persons are padded to `max_persons` slots with
 validity masks. Detection and crops live in det-input space; keypoints
 and pixel heights are de-normalized to each image's original size
-(`orig_hw`). The four stages are `record_function` ranges
-(`hbpe.detector`, `hbpe.crop`, `hbpe.pose`, `hbpe.decode_cm`) that a
-`torch.profiler` run reads (`chip_smoke.py --profile`).
+(`orig_hw`). The four stages are profiler spans (`utils.profiling.span`:
+`hbpe.detector`, `hbpe.crop`, `hbpe.pose`, `hbpe.decode_cm`, each tagged
+with the batch its thread serves) that a `torch.profiler` run reads
+(`chip_smoke.py --profile`, the benchmark's traced slice).
 
 `ServingProgram` is the serving forward as an `nn.Module` over the
 backend's and the pose model's modules: what `torch.export` takes to make
 the deployable artifact (`pipeline/export.py`). An export keeps neither
-the `record_function` ranges nor `torch.inference_mode`: they are not
-operations of the graph.
+the spans nor `torch.inference_mode`: they are not operations of the
+graph.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from human_body_proportion_estimation_tpu_torch.ops import (
     boxes as box_ops,
@@ -36,6 +36,7 @@ from human_body_proportion_estimation_tpu_torch.ops import (
 from human_body_proportion_estimation_tpu_torch.utils.config import (
     PipelineConfig,
 )
+from human_body_proportion_estimation_tpu_torch.utils.profiling import span
 
 
 class PipelineOutputs(NamedTuple):
@@ -119,11 +120,11 @@ class ServingProgram(torch.nn.Module):
         b = images.shape[0]
         images_f32 = images.float()
 
-        with record_function("hbpe.detector"):
+        with span("detector"):
             boxes_px, det_scores, person_valid = self.backend(
                 images_f32, det_threshold)
 
-        with record_function("hbpe.crop"):
+        with span("crop"):
             # bbox expand + normalize (x expand w//17, y expand 0)
             boxes_norm = box_ops.expand_clip_normalize_yxyx(
                 boxes_px, float(cfg.x_expand), 0.0, h, w)
@@ -134,11 +135,11 @@ class ServingProgram(torch.nn.Module):
             crops = crops.reshape(b * p, cfg.pose.crop_height,
                                   cfg.pose.crop_width, 3).permute(0, 3, 1, 2)
 
-        with record_function("hbpe.pose"):
+        with span("pose"):
             heatmaps = self.pose(crops).contiguous()  # [B*P, K, Hm, Wm] f32
         hm_h, hm_w = heatmaps.shape[-2:]
 
-        with record_function("hbpe.decode_cm"):
+        with span("decode_cm"):
             kp_flat, sc_flat = kernels.decode_heatmaps(heatmaps)
             kp_hm = kp_flat.reshape(b, p, k, 2)
             kp_scores = sc_flat.reshape(b, p, k)

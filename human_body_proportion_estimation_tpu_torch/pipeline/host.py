@@ -12,7 +12,6 @@ once (the native batcher keeps two batches in flight).
 
 from __future__ import annotations
 
-import contextlib
 import io
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
@@ -72,6 +71,9 @@ from human_body_proportion_estimation_tpu_torch.utils.config import (
 )
 from human_body_proportion_estimation_tpu_torch.utils.logging import (
     get_logger,
+)
+from human_body_proportion_estimation_tpu_torch.utils.profiling import (
+    stage_of,
 )
 
 
@@ -239,7 +241,14 @@ class InferencePipeline:
     attaches one) that `infer_serving` reports its stages to:
     `host_prepare`, `device_upload` (closed once the copies have finished
     on the stream) and `device_compute_readback` (closed when the result
-    is on the host), the stage names of the JAX package.
+    is on the host), the stage names of the JAX package; inside the last,
+    `device_issue` (the shards' forwards called, up to their return) and
+    `device_readback` (the packed rows copied to the host). The issue is
+    not host time alone: the forward copies host values to the card
+    several times, and each copy waits for the stream to drain (PERF.md
+    §5), so the readback finds the card done. Every batch also adds its
+    image count to the counter `rows_real` and its padded bucket to
+    `rows_run`.
     """
 
     def __init__(
@@ -347,9 +356,7 @@ class InferencePipeline:
         return [replica(self.program, d) for d in self.mesh.data_devices]
 
     def _stage(self, name: str):
-        if self.stages is None:
-            return contextlib.nullcontext()
-        return self.stages.stage(name)
+        return stage_of(self.stages, name)
 
     def _prepare(self, images_rgb, person_heights, det_threshold):
         """Host batch -> [per shard: (images, thresholds, heights,
@@ -360,6 +367,9 @@ class InferencePipeline:
                 b = pad_to_shards(b, self.mesh.shape["data"])
             *arrays, n = prepare_batch(
                 self.config, images_rgb, person_heights, det_threshold, b)
+        if self.stages is not None:
+            self.stages.count("rows_real", n)
+            self.stages.count("rows_run", b)
         return self._upload(arrays), n
 
     def _upload(self, arrays) -> List[list]:
@@ -378,9 +388,11 @@ class InferencePipeline:
 
     @torch.inference_mode()
     def _serving(self, shards) -> np.ndarray:
-        outs = [program(*args)
-                for program, args in zip(self.shard_programs, shards)]
-        return np.concatenate([o.cpu().numpy() for o in outs])
+        with self._stage("device_issue"):
+            outs = [program(*args)
+                    for program, args in zip(self.shard_programs, shards)]
+        with self._stage("device_readback"):
+            return np.concatenate([o.cpu().numpy() for o in outs])
 
     def infer_serving(
         self,

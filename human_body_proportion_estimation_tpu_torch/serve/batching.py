@@ -27,6 +27,8 @@ from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Sequence
 
+from human_body_proportion_estimation_tpu_torch.utils import profiling
+
 
 @dataclass
 class WorkItem:
@@ -101,6 +103,12 @@ class DynamicBatcher:
             it (the HTTP layer maps this to a 503-style error response,
             where the reference would block the event loop instead,
             server.py:109-111).
+        stages: an optional `utils.profiling.StageTimer` that each batch
+            reports to, under its batch id (`profiling.batch_scope`):
+            `batcher_forward` (the runner, whose own stages nest in it)
+            and `batcher_answer` (the futures' results). One batch runs
+            at a time on the collector thread, so a formed batch never
+            waits for a slot: there is no `batcher_slot_wait` here.
     """
 
     def __init__(
@@ -111,8 +119,10 @@ class DynamicBatcher:
         queue_depth: int = 256,
         metrics: Metrics | None = None,
         trace_name: str = "pipeline",
+        stages: profiling.StageTimer | None = None,
     ):
         self._runner = runner
+        self._stages = stages
         self._max_batch = max_batch
         self._timeout_s = batch_timeout_ms / 1e3
         self._queue: queue.Queue[WorkItem | None] = queue.Queue(queue_depth)
@@ -183,15 +193,21 @@ class DynamicBatcher:
             batch = self._collect()
             if not batch:
                 continue
-            launch = time.perf_counter()
-            self.metrics.observe_batch(len(batch))
-            try:
+            with profiling.batch_scope(profiling.next_batch_id()):
+                self._run(batch)
+
+    def _run(self, batch: List[WorkItem]):
+        launch = time.perf_counter()
+        self.metrics.observe_batch(len(batch))
+        try:
+            with profiling.stage_of(self._stages, "batcher_forward"):
                 results = self._runner([w.payload for w in batch])
-                if len(results) != len(batch):
-                    raise RuntimeError(
-                        f"runner returned {len(results)} results for "
-                        f"{len(batch)} payloads"
-                    )
+            if len(results) != len(batch):
+                raise RuntimeError(
+                    f"runner returned {len(results)} results for "
+                    f"{len(batch)} payloads"
+                )
+            with profiling.stage_of(self._stages, "batcher_answer"):
                 done = time.perf_counter()
                 for w, r in zip(batch, results):
                     # counted and traced before its waiter wakes, so that a
@@ -202,7 +218,8 @@ class DynamicBatcher:
                     )
                     self._maybe_trace(w, launch, done, len(batch))
                     w.future.set_result(r)
-            except Exception as e:  # noqa: BLE001 — fail the whole batch
+        except Exception as e:  # noqa: BLE001 — fail the whole batch
+            with profiling.stage_of(self._stages, "batcher_answer"):
                 for w in batch:
                     if not w.future.done():
                         w.future.set_exception(e)

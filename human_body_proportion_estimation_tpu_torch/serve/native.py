@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, List, Sequence
 
 from human_body_proportion_estimation_tpu_torch.ops import build as _build
 from human_body_proportion_estimation_tpu_torch.serve import tracing
+from human_body_proportion_estimation_tpu_torch.utils import profiling
 
 SOURCE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -96,12 +97,20 @@ class NativeBatcher:
         queue_depth: int = 256,
         pipeline_depth: int = 2,
         trace_name: str = "pipeline",
+        stages: profiling.StageTimer | None = None,
     ):
         """`pipeline_depth`: number of batches allowed in flight at once.
         2 lets batch N+1's host work (prepare, upload) overlap batch N's
         device compute (both run on the same CUDA stream, so the device
         executes them in order and results stay correct); 1 reproduces
-        strictly serial execution."""
+        strictly serial execution.
+
+        `stages`: an optional `utils.profiling.StageTimer` that each batch
+        reports to, under its batch id (`profiling.batch_scope`):
+        `batcher_slot_wait` (loop thread: formed, until one of the
+        `pipeline_depth` slots is free), `batcher_forward` (pool thread:
+        the runner, whose own stages nest in it) and `batcher_answer`
+        (the core's completion and the futures' results)."""
         self._lib = load_library()
         self._core = self._lib.hbpe_core_create(
             max_batch, batch_timeout_ms, queue_depth
@@ -110,6 +119,7 @@ class NativeBatcher:
         # serve/tracing.py)
         self.trace_name = trace_name
         self._runner = runner
+        self._stages = stages
         self._max_batch = max_batch
         self._pending: Dict[int, tuple] = {}
         self._pending_lock = threading.Lock()
@@ -162,28 +172,36 @@ class NativeBatcher:
 
     # ------------------------------------------------------------------ #
 
-    def _execute(self, batch_ids: List[int], items: List[tuple]):
+    def _execute(self, batch: int, batch_ids: List[int], items: List[tuple]):
         try:
-            launch = time.perf_counter()
-            payloads = [it[0] for it in items]
-            results = None
-            error = None
-            try:
+            with profiling.batch_scope(batch):
+                self._run(batch_ids, items)
+        finally:
+            self._inflight.release()
+
+    def _run(self, batch_ids: List[int], items: List[tuple]):
+        launch = time.perf_counter()
+        payloads = [it[0] for it in items]
+        results = None
+        error = None
+        try:
+            with profiling.stage_of(self._stages, "batcher_forward"):
                 results = self._runner(payloads)
-                if len(results) != len(items):
-                    # a short batch would silently truncate the zip below and
-                    # leave the tail futures unresolved forever (callers hang
-                    # on infer() with the default timeout=None)
-                    raise RuntimeError(
-                        f"runner returned {len(results)} results for "
-                        f"{len(items)} payloads"
-                    )
-            except Exception as e:  # noqa: BLE001
-                error = e
-                # pipelined batches fail from separate pool threads; the
-                # unguarded += would lose increments
-                with self._pending_lock:
-                    self._failures += len(items)
+            if len(results) != len(items):
+                # a short batch would silently truncate the zip below and
+                # leave the tail futures unresolved forever (callers hang
+                # on infer() with the default timeout=None)
+                raise RuntimeError(
+                    f"runner returned {len(results)} results for "
+                    f"{len(items)} payloads"
+                )
+        except Exception as e:  # noqa: BLE001
+            error = e
+            # pipelined batches fail from separate pool threads; the
+            # unguarded += would lose increments
+            with self._pending_lock:
+                self._failures += len(items)
+        with profiling.stage_of(self._stages, "batcher_answer"):
             # record metrics BEFORE waking waiters so a caller reading
             # /metrics right after result() sees its own completion
             done = time.perf_counter()
@@ -204,8 +222,6 @@ class NativeBatcher:
                         self.trace_name, enq, launch, done, len(items)
                     )
                     fut.set_result(r)
-        finally:
-            self._inflight.release()
 
     def _loop(self):
         ids = (ctypes.c_uint64 * self._max_batch)()
@@ -218,11 +234,14 @@ class NativeBatcher:
             batch_ids = [int(ids[i]) for i in range(n)]
             with self._pending_lock:
                 items = [self._pending.pop(i) for i in batch_ids]
-            self._inflight.acquire()
+            batch = profiling.next_batch_id()
+            with profiling.batch_scope(batch), profiling.stage_of(
+                    self._stages, "batcher_slot_wait"):
+                self._inflight.acquire()
             if self._stopping:
                 self._inflight.release()
                 for _, fut, _ in items:
                     if not fut.done():
                         fut.set_exception(RuntimeError("shutting down"))
                 break
-            self._pool.submit(self._execute, batch_ids, items)
+            self._pool.submit(self._execute, batch, batch_ids, items)

@@ -166,8 +166,9 @@ class ServingApp:
         self.config = config or pipeline.config
         self.metrics = Metrics()
         # per-stage latency split for /metrics: request decode (handler
-        # threads), then host prepare, device upload and device compute +
-        # readback (InferencePipeline.infer_serving)
+        # threads), the batcher's slot wait, forward and answer, and
+        # inside the forward host prepare, device upload and device
+        # compute + readback (InferencePipeline.infer_serving)
         self.stages = StageTimer()
         pipeline.stages = self.stages
         self._registry = None
@@ -185,6 +186,7 @@ class ServingApp:
                     max_batch=serve_cfg.max_batch,
                     batch_timeout_ms=serve_cfg.batch_timeout_ms,
                     queue_depth=serve_cfg.queue_depth,
+                    stages=self.stages,
                 )
                 self.native = True
             except Exception as e:  # noqa: BLE001 — toolchain missing
@@ -196,6 +198,7 @@ class ServingApp:
                 batch_timeout_ms=serve_cfg.batch_timeout_ms,
                 queue_depth=serve_cfg.queue_depth,
                 metrics=self.metrics,
+                stages=self.stages,
             )
 
     @property

@@ -159,8 +159,12 @@ def test_serving_app_on_artifact(restored):
         assert "body_proportion_lengths_(cm)" in resp
         want = restored.infer_serving([_images()[1]], 175.0, 0.5)
         assert bool(want[0, 0, 0]) == bool(resp["body_proportion_lengths_(cm)"])
+        # the artifact's two stages, the edge's decode and the batcher's
+        # own (the native batcher also times a formed batch's slot wait)
         assert set(app.stages.snapshot()) == {
-            "host_prepare", "device_compute_readback", "request_decode"}
+            "host_prepare", "device_compute_readback", "request_decode",
+            "batcher_forward", "batcher_answer"} | (
+                {"batcher_slot_wait"} if app.native else set())
         health = app.health()
         assert health["weights"] == {"detector": "real", "pose": "real"}
         assert health["devices"] == ["cpu"]
