@@ -1315,12 +1315,18 @@ class Counted:
 def recording_nms(k):
     """Every (boxes, scores, threshold, keep) the NMS sweep kernel gets and
     gives while inside, so that its keep masks can be held against the
-    plain version on the same candidates afterwards."""
+    plain version on the same candidates afterwards. A call made while a
+    CUDA graph is captured (the serving forward's first call at a bucket,
+    `pipeline/graphs.py`) runs nothing then, so it is not recorded."""
+    import torch
+
     seen, launch = [], k.nms_sweep
 
     def record(boxes, scores, t, plus1=False):
         keep = launch(boxes, scores, t, plus1=plus1)
-        seen.append((boxes.clone(), scores.clone(), t, keep.clone(), plus1))
+        if not (boxes.is_cuda and torch.cuda.is_current_stream_capturing()):
+            seen.append((boxes.clone(), scores.clone(), t, keep.clone(),
+                         plus1))
         return keep
 
     k.nms_sweep = record

@@ -269,7 +269,7 @@ def person_slots(
     person_logit: torch.Tensor,   # [B, N] per-anchor person-class logit
     box_regs: torch.Tensor,       # [B, N, 4]
     anchors: torch.Tensor,        # [N, 4] (cy, cx, h, w) pixel anchors
-    image_hw: Tuple[int, int],
+    limit: torch.Tensor,          # [4] (h, w, h, w) of the image, f32
     det_threshold: torch.Tensor,  # [B]
     iou_threshold: float = 0.5,
     top_k: int = 128,
@@ -287,6 +287,9 @@ def person_slots(
     are exactly 0, so both top-k cuts use a stable descending sort: with
     `torch.topk` dead slots would pick other boxes than the JAX package.
 
+    `limit` (`ops.boxes.hw_scale` of the image size) lives on the
+    boxes' device: a copy from the host would wait for the device.
+
     Returns (boxes [B, P, 4] pixel yxyx, scores [B, P], valid [B, P]).
     """
     is_person = person_logit >= best_logit
@@ -297,11 +300,10 @@ def person_slots(
 
     regs = torch.gather(box_regs, 1, idx[..., None].expand(-1, -1, 4))
     boxes_yxyx = decode_boxes(regs, anchors[idx])
-    h, w = image_hw
-    limit = torch.tensor([h, w, h, w], dtype=torch.float32,
-                         device=boxes_yxyx.device)
     boxes_yxyx = boxes_yxyx.clamp_min(0.0).minimum(limit)
-    boxes_xyxy = boxes_yxyx[..., [1, 0, 3, 2]].contiguous()
+    # (y, x) pairs swapped: a flip, where a list index would be copied
+    # from the host
+    boxes_xyxy = boxes_yxyx.unflatten(-1, (2, 2)).flip(-1).flatten(-2)
     keep = kernels.nms_sweep(boxes_xyxy, top_scores.contiguous(),
                              iou_threshold)
 

@@ -7,7 +7,7 @@ Two box orders are kept distinct, as in the JAX package:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,15 +72,25 @@ def expand_clip_normalize_yxyx(
     y_expand: float,
     height: int,
     width: int,
+    scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Grow yxyx pixel boxes by +/- (x, y) margins, clip, normalize to [0,1]
-    (reference `models/conv.py:39-57`)."""
+    (reference `models/conv.py:39-57`). `scale`: [height, width, height,
+    width] f32 on the boxes' device, if the caller holds it there (made
+    here otherwise, a copy from the host)."""
     hf, wf = float(height), float(width)
     y1 = (boxes_yxyx[..., 0] - y_expand).clamp(0.0, hf)
     x1 = (boxes_yxyx[..., 1] - x_expand).clamp(0.0, wf)
     y2 = (boxes_yxyx[..., 2] + y_expand).clamp(0.0, hf)
     x2 = (boxes_yxyx[..., 3] + x_expand).clamp(0.0, wf)
     expanded = torch.stack([y1, x1, y2, x2], dim=-1)
-    scale = torch.tensor([hf, wf, hf, wf], dtype=torch.float32,
-                         device=boxes_yxyx.device)
+    if scale is None:
+        scale = hw_scale(hf, wf, boxes_yxyx.device)
     return expanded / scale
+
+
+def hw_scale(height: float, width: float, device=None) -> torch.Tensor:
+    """[height, width, height, width] f32: the per-coordinate scale (or
+    limit) of a yxyx box in an image of that size."""
+    return torch.tensor([height, width, height, width], dtype=torch.float32,
+                        device=device)

@@ -86,8 +86,12 @@ def remap_to_image(
 
 
 def gate_keypoints(
-    scores: torch.Tensor, thresholds: Sequence[float]
+    scores: torch.Tensor, thresholds: Sequence[float] | torch.Tensor
 ) -> torch.Tensor:
-    """Visibility mask [..., K]: score >= per-keypoint threshold."""
-    t = torch.as_tensor(thresholds, dtype=torch.float32, device=scores.device)
-    return scores >= t
+    """Visibility mask [..., K]: score >= per-keypoint threshold.
+    `thresholds`: a sequence, or a [K] f32 tensor already on the scores'
+    device (a sequence is copied there from the host)."""
+    if not isinstance(thresholds, torch.Tensor):
+        thresholds = torch.as_tensor(thresholds, dtype=torch.float32,
+                                     device=scores.device)
+    return scores >= thresholds

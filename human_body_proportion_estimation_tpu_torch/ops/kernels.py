@@ -22,9 +22,11 @@ launch to the plain version. The public wrappers below keep the shape
 checks; the dtype, contiguity and alignment checks and the launch counts
 live in the CUDA implementations, which see real tensors only. Every
 launch adds one to `LAUNCHES[name]`, so a run can show that it went
-through the kernels (`reset_launch_counts` / `launch_counts`). Importing
-this module registers the ops: `torch.export.load` of a program that
-calls them needs that first.
+through the kernels (`reset_launch_counts` / `launch_counts`); a launch
+captured into a CUDA graph is counted at each replay instead
+(`recording_launches`, `add_launches`). Importing this module registers
+the ops: `torch.export.load` of a program that calls them needs that
+first.
 
 The serving edge runs two batches at once on two threads, so the first
 load of the kernel library, the cache of packed head weights and the
@@ -33,9 +35,10 @@ launch counters each take a lock.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -61,6 +64,41 @@ def reset_launch_counts() -> None:
 def launch_counts() -> Dict[str, int]:
     with _LAUNCHES_LOCK:
         return dict(LAUNCHES)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count `counts` launches as if they had been made: a CUDA graph's
+    replay launches what it captured without the wrappers running."""
+    with _LAUNCHES_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+class LaunchRecord:
+    """What the kernel launches of a region made on one thread:
+    `launches` by kernel name, and `packed`, the (weight, bias, slabs,
+    bias_p) entries of the packed head weights they read."""
+
+    def __init__(self):
+        self.launches: Counter = Counter()
+        self.packed: list = []
+
+
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yield a `LaunchRecord` that takes this thread's launches inside the
+    region in place of `LAUNCHES`: a region captured into a CUDA graph
+    runs only when the graph replays, and the replay counts them
+    (`add_launches(record.launches)`). Other threads count as before."""
+    outer = getattr(_RECORDING, "record", None)
+    _RECORDING.record = record = LaunchRecord()
+    try:
+        yield record
+    finally:
+        _RECORDING.record = outer
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -91,6 +129,10 @@ def _launch(name: str, fn, *args) -> None:
 
 
 def _count(name: str) -> None:
+    record = getattr(_RECORDING, "record", None)
+    if record is not None:
+        record.launches[name] += 1
+        return
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
 
@@ -205,9 +247,10 @@ def head_score_levels_plain(
             torch.cat([o[1].reshape(b, -1) for o in outs], 1))
 
 
-def head_k_permutation(f: int) -> torch.Tensor:
+def head_k_permutation(f: int, device: torch.device) -> torch.Tensor:
     """Feature index behind each position of the kernel's K axis, padded to
-    a multiple of 32 (indices >= f are padding).
+    a multiple of 32 (indices >= f are padding), made on `device` (no copy
+    from the host, which would wait for the device's stream).
 
     The kernel holds z in registers as the wgmma A operand. A k-step of 16
     gives thread t of a quad the columns 2t, 2t+1, 2t+8, 2t+9; so that the
@@ -215,7 +258,7 @@ def head_k_permutation(f: int) -> torch.Tensor:
     owns features 32p + 8t .. 32p + 8t + 7 of every 32: +0..3 feed k-step
     2p, +4..7 feed k-step 2p + 1. The weight slabs are packed in the same
     order, which a dot product does not notice."""
-    pos = torch.arange(-(-f // 32) * 32)
+    pos = torch.arange(-(-f // 32) * 32, device=device)
     chunk, e = pos // 8, pos % 8          # 16-byte chunk of K, element in it
     return (32 * (chunk // 4) + 8 * (e // 2) + 4 * ((chunk // 2) % 2)
             + 2 * (chunk % 2) + e % 2)
@@ -243,7 +286,7 @@ def pack_head_weights(
     f = weight.shape[1]
     order = torch.arange(c, device=weight.device)
     order[0], order[person_class0] = person_class0, 0
-    perm = head_k_permutation(f).to(weight.device)
+    perm = head_k_permutation(f, weight.device)
     kp = perm.numel()
     wpad = torch.zeros((a, CLASS_PAD, kp), dtype=torch.bfloat16,
                        device=weight.device)
@@ -267,13 +310,15 @@ _PACKED_MAX = 4
 _PACKED_LOCK = threading.Lock()
 
 
-def _version(t: torch.Tensor) -> int:
+def tensor_version(t: torch.Tensor) -> int:
+    """`t`'s version counter, which an in-place update raises; -1 for an
+    inference tensor, which has none."""
     return -1 if t.is_inference() else t._version
 
 
 def _packed_head_weights(weight, bias, a, c, person0):
-    key = (weight.data_ptr(), _version(weight), bias.data_ptr(),
-           _version(bias), a, c, person0)
+    key = (weight.data_ptr(), tensor_version(weight), bias.data_ptr(),
+           tensor_version(bias), a, c, person0)
     with _PACKED_LOCK:
         hit = _PACKED.get(key)
         if hit is None:
@@ -282,6 +327,9 @@ def _packed_head_weights(weight, bias, a, c, person0):
             _PACKED[key] = hit
             while len(_PACKED) > _PACKED_MAX:
                 _PACKED.popitem(last=False)
+    record = getattr(_RECORDING, "record", None)
+    if record is not None:
+        record.packed.append(hit)
     return hit[2], hit[3]
 
 

@@ -55,6 +55,14 @@ def _build_matrices():
 _P1, _P2, _REQUIRED = _build_matrices()
 
 
+def segment_matrices(device: torch.device):
+    """(endpoint-1 weights [11, 17] f32, endpoint-2 weights, required
+    keypoints [11, 17] bool) on `device`: what `segment_lengths` reads, for
+    a caller that keeps them there."""
+    return tuple(torch.from_numpy(m).to(device)
+                 for m in (_P1, _P2, _REQUIRED))
+
+
 class SegmentLengths(NamedTuple):
     lengths_cm: torch.Tensor  # [..., NUM_SEGMENTS] float32
     visible: torch.Tensor     # [..., NUM_SEGMENTS] bool
@@ -64,18 +72,17 @@ def segment_lengths(
     keypoints: torch.Tensor,
     visible: torch.Tensor,
     pixel_to_cm: torch.Tensor,
+    matrices=None,
 ) -> SegmentLengths:
     """The 11 segment lengths in cm with visibility masks.
 
     keypoints [..., 17, 2] image-space (x, y); visible [..., 17] bool;
     pixel_to_cm [...] = person_height_cm / bbox_pixel_height. A segment is
     visible iff every required keypoint passed its gate and its pixel
-    distance is > 0.
+    distance is > 0. `matrices`: `segment_matrices` on the keypoints'
+    device, if the caller holds them (copied from the host otherwise).
     """
-    dev = keypoints.device
-    p1 = torch.from_numpy(_P1).to(dev)
-    p2 = torch.from_numpy(_P2).to(dev)
-    req = torch.from_numpy(_REQUIRED).to(dev)
+    p1, p2, req = matrices or segment_matrices(keypoints.device)
 
     kp = keypoints.float()
     e1 = torch.einsum("sk,...kc->...sc", p1, kp)

@@ -7,6 +7,11 @@ padded person slots (boxes_px yxyx in det-input space, scores, valid),
 `max_persons` per image. Its model is a submodule and its constants
 (anchors) are buffers, so a `pipeline.full.ServingProgram` over it exports
 them with the program (`pipeline/export.py`).
+
+A backend whose forward copies nothing from the host and never waits for
+the device sets `capturable`: the serving forward over it is then
+replayed from CUDA graphs (`pipeline/graphs.py`). `EfficientDetBackend`
+is; the YOLO and SSD slots still build host constants in their forwards.
 """
 
 from __future__ import annotations
@@ -44,6 +49,8 @@ from human_body_proportion_estimation_tpu_torch.utils.config import (
 class EfficientDetBackend(torch.nn.Module):
     """EfficientDet-Lite slot: fused head-score kernel + person-only NMS."""
 
+    capturable = True
+
     def __init__(self, detector: EfficientDet, config: PipelineConfig,
                  device: torch.device | str):
         super().__init__()
@@ -51,19 +58,21 @@ class EfficientDetBackend(torch.nn.Module):
         self.config = config
         det = config.detector
         self.image_hw = (det.input_height, det.input_width)
-        # anchors depend only on the input size: build them once (a buffer
-        # of the module, left out of its state_dict)
+        # anchors and the box limit depend only on the input size: build
+        # them once (buffers of the module, left out of its state_dict)
         self.register_buffer("anchors", torch.from_numpy(generate_anchors(
             detector.config.anchors, *self.image_hw)).to(device),
             persistent=False)
+        self.register_buffer("box_limit", box_ops.hw_scale(
+            *map(float, self.image_hw), device), persistent=False)
 
     def forward(self, images_f32: torch.Tensor,
                 det_threshold: torch.Tensor):
         det = self.config.detector
         best_logit, person_logit, box_regs = self.detector(images_f32)
         return person_slots(
-            best_logit, person_logit, box_regs, self.anchors, self.image_hw,
-            det_threshold,
+            best_logit, person_logit, box_regs, self.anchors,
+            self.box_limit, det_threshold,
             iou_threshold=det.iou_threshold,
             top_k=det.nms_top_k,
             max_persons=det.max_persons,

@@ -17,7 +17,10 @@ with the batch its thread serves) that a `torch.profiler` run reads
 backend's and the pose model's modules: what `torch.export` takes to make
 the deployable artifact (`pipeline/export.py`). An export keeps neither
 the spans nor `torch.inference_mode`: they are not operations of the
-graph.
+graph. The forward's constants are buffers on the device, so that it
+copies nothing from the host and never waits for the device: where its
+backend is `capturable` as well, its `graphs` (`pipeline/graphs.py`)
+replay it from CUDA graphs, one a stage, each inside its stage's span.
 """
 
 from __future__ import annotations
@@ -86,12 +89,27 @@ def pack_serving(person_valid: torch.Tensor, lengths_cm: torch.Tensor,
                       seg_visible.float()], dim=-1)
 
 
+def run_stages(stages, enter=span):
+    """Run a stage generator (`ServingProgram.stages`), the code of each
+    stage inside `enter(name)`, and return what the generator returns."""
+    name = next(stages)
+    while True:
+        with enter(name):
+            try:
+                name = next(stages)
+            except StopIteration as done:
+                return done.value
+
+
 class ServingProgram(torch.nn.Module):
     """The fused forward as a module over a detector backend and a pose
     model (both `nn.Module`s, registered as its submodules: their
     parameters and buffers are its own, shared and not copied). `forward`
     is the serving forward: (images u8 [B, H, W, 3], thresholds [B],
-    heights [B, P], orig_hw [B, 2]) -> packed [B, P, 23]."""
+    heights [B, P], orig_hw [B, 2]) -> packed [B, P, 23], replayed by
+    `graphs` (a `pipeline.graphs.ForwardGraphs`, set by the pipeline where
+    the forward can be captured) where they hold the call's shapes, and
+    run eagerly otherwise, and always under `torch.export`."""
 
     def __init__(self, config: PipelineConfig, backend: torch.nn.Module,
                  pose: torch.nn.Module):
@@ -99,11 +117,32 @@ class ServingProgram(torch.nn.Module):
         self.config = config
         self.backend = backend
         self.pose = pose
+        self.graphs = None
+        dev = next(backend.parameters()).device
+        det = config.detector
+        self.register_buffer("box_scale", box_ops.hw_scale(
+            float(det.input_height), float(det.input_width), dev),
+            persistent=False)
+        self.register_buffer("kp_thresholds", torch.tensor(
+            config.pose.keypoint_thresholds, dtype=torch.float32,
+            device=dev), persistent=False)
+        for name, m in zip(("seg_p1", "seg_p2", "seg_required"),
+                           prop_ops.segment_matrices(dev)):
+            self.register_buffer(name, m, persistent=False)
 
     def forward(self, images, det_threshold, person_heights, orig_hw):
-        out = self.outputs(images, det_threshold, person_heights, orig_hw)
-        return pack_serving(out.person_valid, out.lengths_cm,
-                            out.seg_visible)
+        if self.graphs is not None and not torch.compiler.is_compiling():
+            out = self.graphs.replay(images, det_threshold, person_heights,
+                                     orig_hw)
+            if out is not None:
+                return out
+        return self.eager_forward(images, det_threshold, person_heights,
+                                  orig_hw)
+
+    def eager_forward(self, images, det_threshold, person_heights, orig_hw):
+        """The serving forward run eagerly, stage by stage in its spans."""
+        return run_stages(self.stages(images, det_threshold, person_heights,
+                                      orig_hw, packed=True))
 
     def outputs(
         self,
@@ -113,54 +152,67 @@ class ServingProgram(torch.nn.Module):
         orig_hw: torch.Tensor,         # [B, 2] original (h, w) per image
         with_heatmaps: bool = False,
     ) -> PipelineOutputs:
+        return run_stages(self.stages(images, det_threshold, person_heights,
+                                      orig_hw, with_heatmaps))
+
+    def stages(self, images, det_threshold, person_heights, orig_hw,
+               with_heatmaps: bool = False, packed: bool = False):
+        """The forward as a generator: yields the name of each stage
+        (detector, crop, pose, decode_cm) before running that stage's
+        code, and returns the
+        `PipelineOutputs`, or with `packed` the packed [B, P, 23] rows
+        (`pack_serving`, in the last stage). `run_stages` runs it."""
         cfg = self.config
         h, w = cfg.detector.input_height, cfg.detector.input_width
         p = cfg.detector.max_persons
         k = cfg.pose.num_keypoints
         b = images.shape[0]
+
+        yield "detector"
         images_f32 = images.float()
+        boxes_px, det_scores, person_valid = self.backend(
+            images_f32, det_threshold)
 
-        with span("detector"):
-            boxes_px, det_scores, person_valid = self.backend(
-                images_f32, det_threshold)
+        yield "crop"
+        # bbox expand + normalize (x expand w//17, y expand 0)
+        boxes_norm = box_ops.expand_clip_normalize_yxyx(
+            boxes_px, float(cfg.x_expand), 0.0, h, w, self.box_scale)
+        # person crops from the /255 image, f32
+        crops = crop_ops.crop_and_resize(
+            images_f32 / 255.0, boxes_norm, cfg.pose.crop_height,
+            cfg.pose.crop_width)                      # [B, P, ch, cw, 3]
+        crops = crops.reshape(b * p, cfg.pose.crop_height,
+                              cfg.pose.crop_width, 3).permute(0, 3, 1, 2)
 
-        with span("crop"):
-            # bbox expand + normalize (x expand w//17, y expand 0)
-            boxes_norm = box_ops.expand_clip_normalize_yxyx(
-                boxes_px, float(cfg.x_expand), 0.0, h, w)
-            # person crops from the /255 image, f32
-            crops = crop_ops.crop_and_resize(
-                images_f32 / 255.0, boxes_norm, cfg.pose.crop_height,
-                cfg.pose.crop_width)                  # [B, P, ch, cw, 3]
-            crops = crops.reshape(b * p, cfg.pose.crop_height,
-                                  cfg.pose.crop_width, 3).permute(0, 3, 1, 2)
-
-        with span("pose"):
-            heatmaps = self.pose(crops).contiguous()  # [B*P, K, Hm, Wm] f32
+        yield "pose"
+        heatmaps = self.pose(crops).contiguous()      # [B*P, K, Hm, Wm] f32
         hm_h, hm_w = heatmaps.shape[-2:]
 
-        with span("decode_cm"):
-            kp_flat, sc_flat = kernels.decode_heatmaps(heatmaps)
-            kp_hm = kp_flat.reshape(b, p, k, 2)
-            kp_scores = sc_flat.reshape(b, p, k)
-            heatmaps = heatmaps.reshape(b, p, k, hm_h, hm_w)
-            if cfg.pose.subpixel_refine:
-                kp_hm = hm_ops.refine_subpixel(kp_hm, heatmaps)
-            kp_visible = hm_ops.gate_keypoints(
-                kp_scores, cfg.pose.keypoint_thresholds)
+        yield "decode_cm"
+        kp_flat, sc_flat = kernels.decode_heatmaps(heatmaps)
+        kp_hm = kp_flat.reshape(b, p, k, 2)
+        kp_scores = sc_flat.reshape(b, p, k)
+        heatmaps = heatmaps.reshape(b, p, k, hm_h, hm_w)
+        if cfg.pose.subpixel_refine:
+            kp_hm = hm_ops.refine_subpixel(kp_hm, heatmaps)
+        kp_visible = hm_ops.gate_keypoints(kp_scores, self.kp_thresholds)
 
-            # de-normalize boxes to ORIGINAL image space + remap keypoints
-            scale = torch.cat([orig_hw, orig_hw], dim=-1)   # [B, 4] hwhw
-            boxes_orig = boxes_norm * scale[:, None, :]
-            kp_img = hm_ops.remap_to_image(kp_hm, boxes_orig, (hm_h, hm_w))
+        # de-normalize boxes to ORIGINAL image space + remap keypoints
+        scale = torch.cat([orig_hw, orig_hw], dim=-1)   # [B, 4] hwhw
+        boxes_orig = boxes_norm * scale[:, None, :]
+        kp_img = hm_ops.remap_to_image(kp_hm, boxes_orig, (hm_h, hm_w))
 
-            # pixel -> cm + segments
-            bt = torch.trunc(boxes_orig)
-            pixel_height = bt[..., 2] - bt[..., 0]
-            pixel_to_cm = person_heights / pixel_height.clamp_min(1.0)
-            seg = prop_ops.segment_lengths(kp_img, kp_visible, pixel_to_cm)
-            seg_visible = seg.visible & person_valid[..., None]
-
+        # pixel -> cm + segments
+        bt = torch.trunc(boxes_orig)
+        pixel_height = bt[..., 2] - bt[..., 0]
+        pixel_to_cm = person_heights / pixel_height.clamp_min(1.0)
+        seg = prop_ops.segment_lengths(
+            kp_img, kp_visible, pixel_to_cm,
+            (self.seg_p1, self.seg_p2, self.seg_required))
+        seg_visible = seg.visible & person_valid[..., None]
+        lengths_cm = torch.where(seg_visible, seg.lengths_cm, 0.0)
+        if packed:
+            return pack_serving(person_valid, lengths_cm, seg_visible)
         return PipelineOutputs(
             boxes_norm=boxes_norm,
             boxes_orig=boxes_orig,
@@ -169,7 +221,7 @@ class ServingProgram(torch.nn.Module):
             keypoints=kp_img,
             kp_scores=kp_scores,
             kp_visible=kp_visible,
-            lengths_cm=torch.where(seg_visible, seg.lengths_cm, 0.0),
+            lengths_cm=lengths_cm,
             seg_visible=seg_visible,
             heatmaps=heatmaps if with_heatmaps else None,
         )

@@ -12,6 +12,7 @@ once (the native batcher keeps two batches in flight).
 
 from __future__ import annotations
 
+import contextlib
 import io
 from typing import Any, Dict, List, Mapping, Optional, Sequence
 
@@ -65,6 +66,9 @@ from human_body_proportion_estimation_tpu_torch.pipeline.backends import (
 from human_body_proportion_estimation_tpu_torch.pipeline.full import (
     PipelineOutputs,
     ServingProgram,
+)
+from human_body_proportion_estimation_tpu_torch.pipeline.graphs import (
+    ForwardGraphs,
 )
 from human_body_proportion_estimation_tpu_torch.utils.config import (
     PipelineConfig,
@@ -164,7 +168,8 @@ def prewarm_serving(pipeline) -> list:
     to `serve.max_batch` (an artifact's one fixed batch: every count pads
     to it), so that the first real request at a bucket pays no first-call
     cost (the kernel library build and load, cuDNN's choice of algorithms
-    for the new shapes, the packing of the head weights). The analog of
+    for the new shapes, the packing of the head weights, the capture of
+    the bucket's CUDA graphs where the forward is replayed). The analog of
     Triton marking a model READY only after load + initialize (reference
     README.md:56-64). Returns the image counts warmed and sets
     `pipeline.prewarmed` for /health. Works on any pipeline with `config`,
@@ -242,13 +247,20 @@ class InferencePipeline:
     `host_prepare`, `device_upload` (closed once the copies have finished
     on the stream) and `device_compute_readback` (closed when the result
     is on the host), the stage names of the JAX package; inside the last,
-    `device_issue` (the shards' forwards called, up to their return) and
-    `device_readback` (the packed rows copied to the host). The issue is
-    not host time alone: the forward copies host values to the card
-    several times, and each copy waits for the stream to drain (PERF.md
-    §5), so the readback finds the card done. Every batch also adds its
-    image count to the counter `rows_real` and its padded bucket to
-    `rows_run`.
+    `device_issue` (the shards' forwards called, up to their return: the
+    host's issue, the forward never waits for the card) and
+    `device_readback` (the packed rows copied to the host, which waits for
+    the card to finish the forward). Every batch also adds its image count
+    to the counter `rows_real` and its padded bucket to `rows_run`, and
+    one to `forward_graphed` or `forward_eager`.
+
+    CUDA graphs: on a CUDA device, without a mesh and over a backend that
+    is `capturable` (EfficientDet), the serving forward is replayed from
+    CUDA graphs (`pipeline/graphs.py`, `program.graphs`): the first
+    `infer_serving` at a padded bucket up to `serve.max_batch` runs
+    eagerly, then captures the bucket; every later one replays it
+    (`forward_graphed`). Everywhere else, and in `infer_images`, the
+    forward runs eagerly.
     """
 
     def __init__(
@@ -346,6 +358,9 @@ class InferencePipeline:
         self.stages = None
         self.prewarmed = False
         self.program = ServingProgram(cfg, self.backend, pose)
+        if (self.device.type == "cuda" and mesh is None
+                and getattr(self.backend, "capturable", False)):
+            self.program.graphs = ForwardGraphs(self.program)
 
     @property
     def shard_programs(self) -> list:
@@ -386,13 +401,30 @@ class InferencePipeline:
         return self._serving(self._upload((batch, thresholds, heights,
                                            orig_hw)))
 
+    def _forward_section(self):
+        """Around a forward from its issue to its readback: a capture of
+        the program's CUDA graphs never overlaps it."""
+        graphs = self.program.graphs
+        return (contextlib.nullcontext() if graphs is None
+                else graphs.forward())
+
     @torch.inference_mode()
     def _serving(self, shards) -> np.ndarray:
-        with self._stage("device_issue"):
-            outs = [program(*args)
-                    for program, args in zip(self.shard_programs, shards)]
-        with self._stage("device_readback"):
-            return np.concatenate([o.cpu().numpy() for o in outs])
+        graphs = self.program.graphs
+        with self._forward_section():
+            with self._stage("device_issue"):
+                outs = [program(*args)
+                        for program, args in zip(self.shard_programs, shards)]
+            graphed = graphs is not None and graphs.replayed()
+            with self._stage("device_readback"):
+                rows = np.concatenate([o.cpu().numpy() for o in outs])
+        if self.stages is not None:
+            self.stages.count("forward_graphed" if graphed
+                              else "forward_eager")
+        if (graphs is not None and not graphed
+                and len(rows) <= self.config.serve.max_batch):
+            graphs.capture(*shards[0])
+        return rows
 
     def infer_serving(
         self,
@@ -417,14 +449,16 @@ class InferencePipeline:
         """The fused forward on original-size RGB images; every output
         leaf comes back as a numpy array cut to the n real images."""
         shards, n = self._prepare(images_rgb, person_heights, det_threshold)
-        with torch.inference_mode():
-            outs = [program.outputs(*args, with_heatmaps)
-                    for program, args in zip(self.shard_programs, shards)]
-        return PipelineOutputs(*(
-            None if parts[0] is None
-            else np.concatenate([x.cpu().numpy() for x in parts])[:n]
-            for parts in zip(*outs)
-        ))
+        with self._forward_section():
+            with torch.inference_mode():
+                outs = [program.outputs(*args, with_heatmaps)
+                        for program, args in zip(self.shard_programs,
+                                                  shards)]
+            return PipelineOutputs(*(
+                None if parts[0] is None
+                else np.concatenate([x.cpu().numpy() for x in parts])[:n]
+                for parts in zip(*outs)
+            ))
 
     def infer_bytes(
         self,

@@ -2,7 +2,9 @@
 `utils/profiling.py`.
 
   * `span` — the program's one kind of profiler range, `hbpe.<name>`,
-    tagged with the batch the current thread is serving (`batch_scope`).
+    tagged with the batch the current thread is serving (`batch_scope`);
+    `op_range` — an operator's range around a CUDA graph's replay, which
+    carries the graph's kernels into the span around it.
   * `StageTimer` — accumulating per-stage wall-time stats and cumulative
     counters for the serving edge's host-side stages (`/metrics`
     `stages`); each stage is also a `span`.
@@ -92,6 +94,25 @@ class span:
 
     def __exit__(self, *exc):
         _exit_range(self._handle)
+
+
+def _op_range():
+    """`op_range`: `torch._C._profiler._RecordFunctionFast` (private), a
+    range of the operator kind (`RecordScope::FUNCTION`); a torch without
+    it gets no range."""
+    try:
+        from torch._C._profiler import _RecordFunctionFast
+    except ImportError:
+        return lambda name: contextlib.nullcontext()
+    return _RecordFunctionFast
+
+
+# `with op_range(name):` a profiler range of the operator kind around
+# device work that no operator launches (a CUDA graph's replay). The
+# profiler charges the kernels launched inside such a range to it, and so
+# to the spans around it, as it charges an operator's; a user annotation
+# (`span`) takes none itself.
+op_range = _op_range()
 
 
 def stage_of(timer: Optional["StageTimer"], name: str):
